@@ -4,14 +4,18 @@
 
 Phase 0 prints the environment and fails at once without a CUDA card.
 Phase 1 builds the hand-written kernels from the sources in this checkout.
-Phase 2 holds each kernel against its plain PyTorch version on the card, at
-the main path's shapes and at an odd shape, and times both; then one float32
-SimCLR step at a tiny size on the card is held against the same step on the
-CPU, the path the tests hold against the JAX package.
+Phase 2 holds each kernel against its plain PyTorch version on the card,
+at the main path's shapes and at odd ones, and times it at the main path's
+shape (the photometric kernel at batch 512, 32x32: warm in L2 and cold by
+CUDA events, and by the profiler), beside the plain version and the least
+time the card needs for the work. Then one float32 SimCLR step at a tiny
+size on the card is held against the same step on the CPU, the path the
+tests hold against the JAX package.
 Phase 3 trains SimCLR ResNet-18 for one epoch at batch 512 on the full-size
 synthetic CIFAR-10 through `python -m ssv_tpu_torch.main`'s entry point,
 with KNN validation, and checks that every train step went through the
-kernels. Any failure raises; the last line is the JSON result.
+kernels. Any failure raises; the line before the last holds the kernels'
+numbers, the last line the JSON result.
 """
 
 from __future__ import annotations
@@ -29,8 +33,6 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-5          # kernel against plain version, max abs diff (float32)
-TIMING_RUNS = 50
-SPIN_CYCLES = 100_000_000  # about 50 ms of one SM's clock: longer than queueing the runs
 
 
 def phase_env() -> str:
@@ -61,54 +63,19 @@ def phase_build() -> None:
           f"in {time.perf_counter() - t0:.2f} s")
 
 
-def _photometric_inputs(B, H, W, g):
-    """Random params plus the edge cases: gate off (identity), hue shift
-    +-0.5, gray gate 1, equal-channel images (delta 0) and all-zero images."""
-    from ssv_tpu_torch.ops.photometric import sample_photometric_params
-
-    dev = "cuda"
-    images = torch.rand(B, H, W, 3, generator=g, device=dev)
-    order, params = sample_photometric_params(
-        B, {"brightness": 0.4, "contrast": 0.4, "saturation": 0.4, "hue": 0.1},
-        0.2, 0.8, g, dev)
-    n = max(B // 8, 1)
-    params[0:n] = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0], device=dev)
-    params[n:2 * n, 3] = 0.5
-    params[2 * n:3 * n, 3] = -0.5
-    params[3 * n:4 * n, 4] = 1.0
-    images[4 * n:5 * n] = images[4 * n:5 * n, ..., :1].expand(-1, -1, -1, 3)
-    images[5 * n:6 * n] = 0.0
-    return images.contiguous(), order.contiguous(), params.contiguous(), n
-
-
-def _median_ms(fn, runs=TIMING_RUNS):
-    """Median device time of one call over `runs` calls, each between its own
-    pair of CUDA events. A spin kernel queued first keeps the card busy while
-    the host queues every call, so the events time the device and not the
-    launch path. After a warm-up call the inputs stay in L2, as they are when
-    the pipeline calls the op right after producing them."""
-    fn()
-    torch.cuda.synchronize()
-    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-             for _ in range(runs)]
-    torch.cuda._sleep(SPIN_CYCLES)
-    for start, end in pairs:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(start.elapsed_time(end) for start, end in pairs)
-
-
 def phase_kernels(card: str) -> list[dict]:
     from ssv_tpu_torch.ops.photometric import (fused_photometric,
                                                photometric_reference)
+    from ssv_tpu_torch.tools.measure import (l2_flush, photometric_bound,
+                                             photometric_inputs, profiled_ms,
+                                             times_ms)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
-    # the main path's shape, an odd one, and one past the registers' 64x64
-    for B, H, W in ((512, 32, 32), (5, 7, 9), (3, 70, 65)):
-        images, order, params, n = _photometric_inputs(B, H, W, g)
+    # the main path's shape, the most pixels the registers hold (16 a
+    # thread), an odd shape, and one past 64x64 (a pass per op)
+    for B, H, W in ((512, 32, 32), (64, 64, 64), (5, 7, 9), (3, 70, 65)):
+        images, order, params, n = photometric_inputs(B, H, W, g)
         got = fused_photometric(images, order, params)
         want = photometric_reference(images, order, params)
         torch.cuda.synchronize()
@@ -122,15 +89,38 @@ def phase_kernels(card: str) -> list[dict]:
             raise AssertionError("photometric kernel: identity factors changed the input")
         max_err = max(max_err, err)
 
-    images, order, params, _ = _photometric_inputs(512, 32, 32, g)
-    plain_ms = _median_ms(lambda: photometric_reference(images, order, params))
-    ms = _median_ms(lambda: fused_photometric(images, order, params))
-    print(f"[kernel] photometric B=512 32x32, median device time of {TIMING_RUNS} calls: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms | {card}")
+    images, order, params, _ = photometric_inputs(512, 32, 32, g)
+
+    def run():
+        return fused_photometric(images, order, params)
+
+    flush = l2_flush()
+    warm, cold = [], []
+    for _ in range(2):
+        warm += times_ms(run)
+        cold += times_ms(run, before=flush)
+    ms, ms_cold = statistics.median(warm), statistics.median(cold)
+    ms_profiler = profiled_ms({"kernel": run}, {"kernel": "photometric_kernel<"})["kernel"]
+    plain_ms = statistics.median(times_ms(lambda: photometric_reference(images, order, params)))
+    bound_ms, bound_by, nbytes, ops = photometric_bound(images, params)
+    print(f"[kernel] photometric bound B=512 32x32: {nbytes:,} bytes, {ops:,.0f} float ops "
+          f"-> {bound_ms * 1e3:.3f} us, bound by {bound_by}")
+    print(f"[kernel] photometric B=512 32x32: event median warm {ms:.4f} ms, cold "
+          f"{ms_cold:.4f} ms ({len(warm)} calls each); profiler "
+          + (f"{ms_profiler * 1e3:.3f} us per launch" if ms_profiler else "saw no device time")
+          + f"; plain version {plain_ms:.4f} ms | {card}")
+
+    def share(t):
+        return bound_ms / t if t else None
+
     return [{"name": "fused_photometric", "route": "cuda",
              "source": "ssv_tpu_torch/csrc/photometric.cu",
              "replaces": "ssv_tpu/ops/pallas/photometric.py:119",
-             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]
+             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "ms_cold": ms_cold, "ms_profiler": ms_profiler,
+             "bound_share_profiler": share(ms_profiler), "bound_share_cold": share(ms_cold),
+             "card": card}]
 
 
 def phase_small_step() -> None:

@@ -5,22 +5,29 @@
 // contrast, saturation and hue in the image's own random order, then the
 // grayscale gate, with the image held in registers between the ops.
 //
-// What bounds it on an H100: memory. A 32x32 image is 12 KB read and 12 KB
-// written, against roughly 60 flops per pixel, far below the card's
-// flops-per-byte balance. The design therefore reads each pixel once and
-// writes it once: one CTA per image, 256 threads, each thread keeping its
-// ceil(H*W/256) pixels (3 channels each) in registers across all four ops
-// (up to 16 a thread; a larger image makes each op a pass over `out`).
-// The only cross-thread step is contrast's mean of the grayscale, a block
-// reduction (warp shuffles, then one partial per warp in shared memory).
+// What bounds it on an H100. The bytes: a 32x32 image is 12 KB read and
+// 12 KB written, 12.6 MB per call at batch 512, 3.76 us at 3.35 TB/s. But
+// the op chain is long (IEEE divisions, multiplies and adds kept apart,
+// selects), and measured on the card (PERF.md) the chain, not memory, sets
+// the time at batch 512: a call takes about as long as the SMs need to
+// execute it with all the batch's images resident at once. Moving the bytes by bulk asynchronous copies through
+// shared memory was measured slower at that batch, so the design stays:
+// read each pixel once and write it once, one CTA per image, 256 threads,
+// each thread keeping its ceil(H*W/256) pixels (3 channels each) in
+// registers across all four ops (up to 16 a thread; a larger image makes
+// each op a pass over `out`). The only cross-thread step is contrast's mean
+// of the grayscale, a block reduction (warp shuffles, then one partial per
+// warp in shared memory).
 //
 // Layout: images and out are (B, H*W, 3) float32, i.e. contiguous NHWC.
 // order is (B, 4) int32, params is (B, 5) float32 =
 // [brightness, contrast, saturation, hue_shift, gray_gate].
 //
 // Numerics follow the plain version op for op: IEEE division, no fast-math,
-// floor-mod for the hue wrap, and the hue op is skipped for a shift of
-// exactly 0 so that identity factors return the input unchanged.
+// no contracted multiply-adds, floor-mod for the hue wrap, and the hue op
+// is skipped for a shift of exactly 0 so that identity factors return the
+// input unchanged. The hue code is shorter than the plain version's but
+// gives its bits; chip_smoke.py holds the kernel against it on the card.
 
 #include <cuda_runtime.h>
 
@@ -42,10 +49,13 @@ __device__ __forceinline__ float blend(float a, float b, float f) {
   return clip01(f * a + (1.f - f) * b);
 }
 
-// Python/JAX float remainder with divisor 1: the result has the divisor's sign.
+// Python/JAX float remainder with divisor 1 (the result has the divisor's
+// sign). Equal in value to fmodf(x, 1) plus 1 when negative; the hue wrap
+// only meets x in [-1, 2), where x - floor(x) is exact for x >= 0 and
+// rounds x + 1 as the fmodf form does for x < 0. The one bit difference,
+// +0 against -0 at x = -1, gives the same sector and the same pixel.
 __device__ __forceinline__ float mod1(float x) {
-  float r = fmodf(x, 1.f);
-  return (r < 0.f) ? r + 1.f : r;
+  return x - floorf(x);
 }
 
 __device__ __forceinline__ void hue_shift(float& r, float& g, float& b,
@@ -56,10 +66,14 @@ __device__ __forceinline__ void hue_shift(float& r, float& g, float& b,
   const float delta = maxc - minc;
   const float s = (maxc > 0.f) ? delta / fmaxf(maxc, 1e-12f) : 0.f;
   const float safe = fmaxf(delta, 1e-12f);
-  const float rc = (maxc - r) / safe;
-  const float gc = (maxc - g) / safe;
-  const float bc = (maxc - b) / safe;
-  float h = (maxc == r) ? bc - gc : ((maxc == g) ? 2.f + rc - bc : 4.f + gc - rc);
+  // h = bc - gc, 2 + rc - bc or 4 + gc - rc (xc = (maxc - x) / safe) by the
+  // channel that holds the max: only the two divisions that branch uses
+  // (0 + bc is bc exactly).
+  const bool rmax = maxc == r, gmax = !rmax && maxc == g;
+  const float off = rmax ? 0.f : (gmax ? 2.f : 4.f);
+  const float first = (maxc - (rmax ? b : (gmax ? r : g))) / safe;
+  const float second = (maxc - (rmax ? g : (gmax ? b : r))) / safe;
+  float h = (off + first) - second;
   h = mod1(h / 6.f);
   if (delta == 0.f) h = 0.f;
 
@@ -70,16 +84,13 @@ __device__ __forceinline__ void hue_shift(float& r, float& g, float& b,
   const float p = v * (1.f - s);
   const float q = v * (1.f - s * f);
   const float t = v * (1.f - s * (1.f - f));
-  // h may round to exactly 1.0, giving sector 6, which wraps to 0.
-  const int i = static_cast<int>(fi) % 6;
-  switch (i) {
-    case 0: r = v; g = t; b = p; break;
-    case 1: r = q; g = v; b = p; break;
-    case 2: r = p; g = v; b = t; break;
-    case 3: r = p; g = q; b = v; break;
-    case 4: r = t; g = p; b = v; break;
-    default: r = v; g = p; b = q; break;
-  }
+  // h in [0, 1], so fi in [0, 6]; h may round to exactly 1.0, giving
+  // sector 6, which wraps to 0. Selects rather than a switch, since
+  // neighbouring pixels fall in different sectors.
+  const int i = (fi >= 6.f) ? 0 : static_cast<int>(fi);
+  r = (i == 0 || i == 5) ? v : (i == 1) ? q : (i <= 3) ? p : t;
+  g = (i == 0) ? t : (i <= 2) ? v : (i == 3) ? q : p;
+  b = (i <= 1) ? p : (i == 2) ? t : (i <= 4) ? v : q;
 }
 
 // Sum of v over the block; every thread gets the total.

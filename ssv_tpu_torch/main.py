@@ -1,10 +1,12 @@
 """CLI entry point of the port, with the JAX package's flags:
 
-    python -m ssv_tpu_torch.main -c <config> -m <arch> -a <algo> -t <task> [-o out] [-l ckpt]
+    python -m ssv_tpu_torch.main -c <config> -m <arch> -a <algo> -t <task> [-o out] [-l ckpt] [-d cuda|cpu]
 
 `-t train` runs. The inference tasks and resuming from `-l` need the
 checkpoints of ROADMAP slice A, item 9, and exit with an error saying so.
-The device is CUDA when present, else the CPU.
+`-d/--device` is the counterpart of the JAX package's `JAX_PLATFORMS`: the
+run is on the CUDA card unless `--device cpu` asks for the CPU, and without
+a card it stops with an error rather than fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +37,8 @@ def main(argv=None):
                     type=str, help="Path to output directory")
     ap.add_argument("-l", "--load", default=None, type=str,
                     help="Path to directory containing trained checkpoints")
+    ap.add_argument("-d", "--device", default="cuda", choices=["cuda", "cpu"],
+                    help="Device to run on (default: cuda)")
     args = vars(ap.parse_args(argv))
 
     if args["task"] != "train":
@@ -46,7 +50,7 @@ def main(argv=None):
 
     from .train.trainer import Trainer
 
-    trainer = Trainer(args)
+    trainer = Trainer(args, device=args["device"])
     trainer.train()
     return trainer
 

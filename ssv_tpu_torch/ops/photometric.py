@@ -3,13 +3,14 @@ grayscale gate, over a batch of NHWC float images in [0, 1].
 
 `fused_photometric` replaces the Pallas TPU kernel of the same name in
 ssv_tpu/ops/pallas/photometric.py. On a CUDA tensor it launches the
-hand-written kernel in csrc/photometric.cu, which is bound by memory
-(about 24 KB read and written per 32x32 image) and so reads each pixel once,
+hand-written kernel in csrc/photometric.cu, which reads each pixel once,
 keeps it in registers through all four ops (up to 64x64 pixels; larger
 images take one pass per op), and writes it once; one CTA of 256 threads per
-image, with a block reduction for contrast's mean. On a CPU
-tensor it runs `photometric_reference`, the plain PyTorch version the CPU
-tests hold against JAX and the chip check holds the kernel against.
+image, with a block reduction for contrast's mean. At the main path's batch
+the instructions of its op chain, not its bytes (about 24 KB read and
+written per 32x32 image), set its time. On a CPU tensor it runs
+`photometric_reference`, the plain PyTorch version the CPU tests hold
+against JAX and the chip check holds the kernel against.
 
 `sample_photometric_params` draws the per-image (order, params) on the
 device from a `torch.Generator`, folding the RandomApply gate into identity

@@ -25,14 +25,20 @@ from .registry import build_algorithm
 STEADY_AFTER = 5  # steps of an epoch left out of its steady-state img/s
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def default_device(device: torch.device | str | None = None) -> torch.device:
+    """The run's device: `device` when given, else CUDA. The CPU runs only
+    when asked for; asking for CUDA without a card raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device found; to train on the CPU, pass "
+                           "--device cpu (or Trainer(..., device='cpu'))")
+    return device
 
 
 class Trainer:
     def __init__(self, args: dict, device: torch.device | str | None = None):
+        self.device = default_device(device)
         self.args = dict(args)
-        self.device = torch.device(device) if device is not None else default_device()
         # float32 matmuls and convolutions stay float32 (the bf16 autocast
         # region is where the speed comes from); stated, not left to defaults
         torch.backends.cuda.matmul.allow_tf32 = False

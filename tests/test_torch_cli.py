@@ -38,7 +38,7 @@ def test_cli_trains_simclr_resnet18(tmp_path):
 
     proc = subprocess.run(
         [sys.executable, "-m", "ssv_tpu_torch.main", "-c", "c.yaml", "-m", "resnet18",
-         "-a", "simclr", "-t", "train", "-o", "run"],
+         "-a", "simclr", "-t", "train", "-o", "run", "--device", "cpu"],
         cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     log = (tmp_path / "outputs" / "simclr" / "resnet18" / "run" / "trainlogs.txt").read_text()
@@ -55,6 +55,26 @@ def test_cli_trains_simclr_resnet18(tmp_path):
 def test_unported_tasks_exit_with_roadmap_pointer(argv):
     with pytest.raises(SystemExit, match=r"not yet ported .*slice A, item 9"):
         cli.main(["-c", "unused.yaml", "-m", "resnet18", "-a", "simclr", *argv])
+
+
+@pytest.mark.parametrize("entry", ["cli", "trainer", "cli_explicit_cuda"])
+def test_no_card_raises_unless_cpu_asked_for(entry, tmp_path, monkeypatch):
+    """Without a card the entry points stop before any data is built; they
+    never fall back to the CPU on their own."""
+    from ssv_tpu_torch.train import trainer as trainer_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    built = []
+    monkeypatch.setattr(trainer_mod, "DataPipeline", lambda *a, **k: built.append(a))
+    argv = ["-c", "missing.yaml", "-m", "resnet18", "-a", "simclr", "-t", "train", "-o", "run"]
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        if entry == "trainer":
+            trainer_mod.Trainer({"config": "missing.yaml", "algo": "simclr",
+                                 "arch": "resnet18", "output": "run"})
+        else:
+            cli.main(argv + (["--device", "cuda"] if entry == "cli_explicit_cuda" else []))
+    assert built == [] and not (tmp_path / "outputs").exists()
 
 
 def test_unported_algorithm_and_arch_raise():

@@ -4,6 +4,8 @@
 on the card) must agree with `fused_photometric(..., interpret=True)` on the
 same (images, order, params) to 1e-5, the tolerance of
 tests/test_pallas_photometric.py; the sampler is checked on its statistics.
+The float identity the kernel's hue wrap rests on is checked here too; the
+kernel itself runs only on the card (chip_smoke.py).
 """
 
 import numpy as np
@@ -11,7 +13,7 @@ import pytest
 import torch
 
 from ssv_tpu.ops.pallas.photometric import fused_photometric as jax_fused
-from ssv_tpu_torch.ops.photometric import (fused_photometric,
+from ssv_tpu_torch.ops.photometric import (_mod1, fused_photometric,
                                            photometric_reference,
                                            sample_photometric_params)
 from torch_helpers import t
@@ -70,6 +72,35 @@ def test_cpu_tensor_takes_plain_version_without_launch():
     want = photometric_reference(t(images), t(order), t(params))
     assert torch.equal(got, want)
     assert fused_photometric.launches == before
+
+
+def test_other_devices_raise_without_launch():
+    images, order, params = (x.to("meta") for x in map(t, _case("odd_5x7x9")))
+    before = fused_photometric.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_photometric(images, order, params)
+    assert fused_photometric.launches == before
+
+
+def test_hue_wrap_floor_form_equals_fmod_form():
+    """The kernel wraps hue as x - floor(x) (`mod1` in csrc/photometric.cu);
+    over float32 in [-1, 2), the values the wrap meets, the plain version's
+    fmod form (`_mod1`) equals it in value. The one bit difference is -0
+    against +0."""
+    rs = np.random.RandomState(0)
+    near = []
+    for edge in (0.0, 0.5, 1.0, 1.5):  # the 10,000 floats either side of +-edge
+        mag = np.float32(edge).view(np.int32) + np.arange(-10_000, 10_001, dtype=np.int32)
+        mag = mag[mag >= 0].view(np.float32)
+        near += [mag, -mag]
+    tiny = np.logspace(-45, 0, 20_000).astype(np.float32)
+    x = np.concatenate([rs.uniform(-1, 2, 4_000_000).astype(np.float32), *near, tiny, -tiny])
+    x = t(x[(x >= -1) & (x < 2)])
+    floor_form = x - torch.floor(x)
+    plain = _mod1(x)
+    assert torch.equal(floor_form, plain)
+    differ = floor_form.view(torch.int32) != plain.view(torch.int32)
+    assert torch.all(floor_form[differ] == 0)
 
 
 def test_sampler_statistics():
