@@ -1,9 +1,9 @@
 """Convert the JAX package's flax variables into the port's `state_dict`.
 
 Takes `params` and `batch_stats` as nested dicts of numpy arrays (the
-caller turns JAX arrays into numpy) for a `Tower(encoder=ResNet, proj=MLPHead)`
-or a bare `ResNet`, and returns a dict of torch tensors keyed by the port's
-module names:
+caller turns JAX arrays into numpy) for a `Tower(encoder=ResNet, proj=MLPHead,
+pred=MLPHead)` or a bare `ResNet`, and returns a dict of torch tensors keyed
+by the port's module names:
 
   * Conv kernels go from HWIO to OIHW; Dense kernels are transposed;
   * BN `scale`/`bias`/`mean`/`var` -> `weight`/`bias`/`running_mean`/`running_var`;
@@ -12,7 +12,11 @@ module names:
     blocks across stages); in a block `Conv_0`, `Conv_1`, `Conv_2` ->
     `conv1`, `conv2`, `downsample.0` and `BatchNorm_<n>` likewise;
     `Dense_<i>` -> `fc.<i>`, and the head's n-th BatchNorm -> `bn.<i>` of
-    the n-th layer in `bn_after`.
+    the n-th layer in that head's `bn_after`.
+
+An algorithm's EMA target (`extra["target_params"]` and
+`extra["target_batch_stats"]` of the JAX `TrainState`) maps to the port's
+`state.extra["target"]` (`extra_state_dicts`).
 """
 
 from __future__ import annotations
@@ -83,11 +87,28 @@ def mlp_state_dict(params: dict, batch_stats: dict, bn_after: Sequence[int],
 
 
 def tower_state_dict(params: dict, batch_stats: dict, stage_sizes: Sequence[int],
-                     bn_after: Sequence[int] = (0, 1)) -> dict:
-    """flax Tower(encoder, proj) variables -> port Tower state_dict."""
+                     bn_after: dict[str, Sequence[int]]) -> dict:
+    """flax Tower(encoder, proj, pred) variables -> port Tower state_dict;
+    `bn_after` gives each head of the tower (`proj`, `pred`) its layers
+    followed by BatchNorm."""
     out = resnet_state_dict(params["encoder"], batch_stats["encoder"],
                             stage_sizes, prefix="encoder.")
-    if "proj" in params:
-        out.update(mlp_state_dict(params["proj"], batch_stats["proj"], bn_after,
-                                  prefix="proj."))
+    heads = set(params) - {"encoder"}
+    if heads != set(bn_after):
+        raise KeyError(f"flax tower heads {sorted(heads)}, bn_after given for "
+                       f"{sorted(bn_after)}")
+    for head, layers in bn_after.items():
+        out.update(mlp_state_dict(params[head], batch_stats.get(head, {}), layers,
+                                  prefix=f"{head}."))
     return out
+
+
+def extra_state_dicts(extra: dict, stage_sizes: Sequence[int],
+                      bn_after: dict[str, Sequence[int]]) -> dict:
+    """A JAX `TrainState.extra` holding an EMA target tower -> the port's
+    `{"target": state_dict}`; an empty `extra` -> {}."""
+    if not extra:
+        return {}
+    return {"target": tower_state_dict(extra["target_params"],
+                                       extra["target_batch_stats"], stage_sizes,
+                                       bn_after)}

@@ -2,8 +2,12 @@
 
     python -m ssv_tpu_torch.main -c <config> -m <arch> -a <algo> -t <task> [-o out] [-l ckpt] [-d cuda|cpu]
 
-`-t train` runs. The inference tasks and resuming from `-l` need the
-checkpoints of ROADMAP slice A, item 9, and exit with an error saying so.
+`-t train` trains (through `Trainer.train_safe`, which saves `latest` on an
+interrupt or error) and ends with the linear probe; with `-l <run dir>` it
+resumes from that run's `latest` checkpoint. `-t linear_eval` and
+`-t get_features` need `-l` and load its `best_model`: the first runs the
+linear probe, the second writes `train_fvecs`, `train_gt`, `test_fvecs` and
+`test_gt` as binary `.npy` files to the output directory.
 `-d/--device` is the counterpart of the JAX package's `JAX_PLATFORMS`: the
 run is on the CUDA card unless `--device cpu` asks for the CPU, and without
 a card it stops with an error rather than fall back to the CPU.
@@ -12,14 +16,22 @@ a card it stops with an error rather than fall back to the CPU.
 from __future__ import annotations
 
 import argparse
-import sys
+import os
 from datetime import datetime as dt
+
+import numpy as np
 
 TASKS = ["train", "linear_eval", "get_features"]
 NETWORKS = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
             "resnext50", "resnext101", "wide_resnet50", "wide_resnet101", "vit"]
 ALGORITHMS = ["simclr", "moco", "byol", "dino", "pirl", "barlow", "simsiam",
               "relic", "deep_cluster", "swav", "sela"]
+
+
+def _check_checkpoint_specified(args):
+    if args["load"] is None:
+        raise ValueError(
+            "For inference tasks, model checkpoint must be specified using --load")
 
 
 def main(argv=None):
@@ -41,17 +53,22 @@ def main(argv=None):
                     help="Device to run on (default: cuda)")
     args = vars(ap.parse_args(argv))
 
-    if args["task"] != "train":
-        sys.exit(f"task {args['task']!r} is not yet ported to ssv_tpu_torch "
-                 f"(ROADMAP slice A, item 9)")
-    if args["load"] is not None:
-        sys.exit("resuming from --load is not yet ported to ssv_tpu_torch "
-                 "(ROADMAP slice A, item 9)")
+    task = args["task"]
+    if task != "train":
+        _check_checkpoint_specified(args)
 
     from .train.trainer import Trainer
 
     trainer = Trainer(args, device=args["device"])
-    trainer.train()
+    if task == "train":
+        trainer.train_safe()
+    elif task == "linear_eval":
+        trainer.perform_linear_eval()
+    else:
+        for split in ("train", "test"):
+            fvecs, gt = trainer.build_features(split)
+            for name, arr in ((f"{split}_fvecs", fvecs), (f"{split}_gt", gt)):
+                np.save(os.path.join(trainer.output_dir, f"{name}.npy"), arr.cpu().numpy())
     return trainer
 
 

@@ -1,4 +1,5 @@
-"""SSL objectives (port of ssv_tpu/objectives/losses.py, the slice's part).
+"""SSL objectives (port of ssv_tpu/objectives/losses.py: NT-Xent, BYOL, SimSiam,
+Barlow Twins and ReLIC).
 
 Losses take and compute in float32; call them outside any autocast region.
 """
@@ -36,3 +37,53 @@ def nt_xent(zi, zj, temperature: float = 1.0, normalize: bool = False):
     pos_idx = torch.cat([ar + n, ar])
     pos = torch.gather(sim, 1, pos_idx[:, None])[:, 0]
     return (torch.logsumexp(sim, dim=1) - pos).mean()
+
+
+def byol_mse(online_1, online_2, target_1, target_2):
+    """MSE over all elements (a 1/(N*D) scale, not 2 - 2cos) between each
+    online output and the other view's target, summed over the two views;
+    the inputs come L2-normalized from the towers."""
+    l1 = ((online_1 - target_2.detach()) ** 2).mean()
+    l2 = ((online_2 - target_1.detach()) ** 2).mean()
+    return l1 + l2
+
+
+def simsiam_neg_cosine(online, target):
+    """-(o . t).sum(1).mean() with both inputs pre-normalized; `detach` is
+    the paper's stop-grad on the target."""
+    return -(online * target.detach()).sum(dim=1).mean()
+
+
+def barlow_twins(zi, zj, off_diagonal_weight: float = 0.005, normalize: bool = True):
+    """Standardize each dim over the batch (unbiased std, ddof=1, as torch's
+    `.std` in the reference), cross-correlate, and sum (C - I)^2 with the
+    off-diagonal terms weighted by `off_diagonal_weight`."""
+    if normalize:
+        zi, zj = l2_normalize(zi), l2_normalize(zj)
+    bs, d = zi.shape
+    zi = (zi - zi.mean(dim=0)) / zi.std(dim=0, correction=1)
+    zj = (zj - zj.mean(dim=0)) / zj.std(dim=0, correction=1)
+    corr = (zi.T @ zj) / bs
+    eye = torch.eye(d, dtype=corr.dtype, device=corr.device)
+    weight = torch.full_like(corr, off_diagonal_weight).fill_diagonal_(1.0)
+    return (((corr - eye) ** 2) * weight).sum()
+
+
+def relic_loss(zi, zj, z_orig, temperature: float = 1.0, alpha: float = 0.5,
+               normalize: bool = True, corrected: bool = False):
+    """NT-Xent between the views plus alpha times a KL invariance term over
+    the batch softmax of each view's similarity to the original image. By
+    default the reference's quirk is kept: probabilities, not log-probs,
+    are the KL input, so kl = sum(p_j * (log p_j - p_i)); `corrected=True`
+    gives KL(p_j || p_i) = sum(p_j * (log p_j - log p_i))."""
+    if normalize:
+        zi, zj, z_orig = l2_normalize(zi), l2_normalize(zj), l2_normalize(z_orig)
+    contrastive = nt_xent(zi, zj, temperature=temperature, normalize=False)
+    sim_io = (zi * z_orig).sum(dim=-1) / temperature
+    sim_jo = (zj * z_orig).sum(dim=-1) / temperature
+    log_pj = torch.log_softmax(sim_jo, dim=-1)
+    if corrected:
+        kl = (log_pj.exp() * (log_pj - torch.log_softmax(sim_io, dim=-1))).sum()
+    else:
+        kl = (log_pj.exp() * (log_pj - torch.softmax(sim_io, dim=-1))).sum()
+    return contrastive + alpha * kl

@@ -7,14 +7,16 @@ One generic trainer (train/trainer.py) drives small algorithm objects:
     embed(state, images)                   -> features
 
 plus optional hooks (`post_epoch`, `pre_train`, `pre_epoch`). The
-`TrainState` holds the model, its optimizer and scheduler, and the global
-step; `grad_step` is the shared backward + optimizer update.
+`TrainState` holds the model, its optimizer and scheduler, the global step,
+and in `extra` the algorithm's other modules (an EMA target), so a
+checkpoint is one save; `grad_step` is the shared backward + optimizer
+update.
 """
 
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
@@ -26,6 +28,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
+    extra: dict[str, torch.nn.Module] = field(default_factory=dict)
 
 
 @dataclass
@@ -47,6 +50,7 @@ class Algorithm:
         self.data = data
         self.device = torch.device(device)
         self.epochs = int(config["epochs"])
+        self.total_steps = self.epochs * data.steps_per_epoch
         # `compute_dtype: float32` runs every encoder/head layer in float32;
         # the default is bf16 autocast with float32 params and BN statistics.
         compute = config.get("compute_dtype")
@@ -84,6 +88,16 @@ class Algorithm:
         return state
 
     # -- shared helpers -------------------------------------------------
+    def place(self, module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+        """Draws `module`'s weights from the host `generator`, so a run
+        starts from the same weights on any device, and moves it to the
+        device (channels-last for cuDNN on CUDA)."""
+        module.init_weights(generator)
+        module = module.to(self.device)
+        if self.device.type == "cuda":
+            module = module.to(memory_format=torch.channels_last)
+        return module
+
     def lr_fn(self) -> Callable[[int], float]:
         from ..utils.schedules import lr_schedule
         return lr_schedule(dict(self.config["optimizer"]),

@@ -23,7 +23,7 @@ def get_optimizer(cfg: dict, params: Iterable[torch.nn.Parameter],
     if name != "sgd":
         raise NotImplementedError(
             f"optimizer {name!r} is not yet ported to ssv_tpu_torch "
-            f"(ROADMAP slice A, item 9)")
+            f"(ROADMAP slice B, with DINO)")
     opt = torch.optim.SGD(params, lr=1.0, momentum=0.9, nesterov=True,
                           weight_decay=wd)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr_fn)

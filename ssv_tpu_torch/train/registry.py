@@ -2,13 +2,17 @@
 
 from __future__ import annotations
 
+from .algorithms.barlow import BarlowTwins
+from .algorithms.byol import BYOL
+from .algorithms.relic import ReLIC
 from .algorithms.simclr import SimCLR
+from .algorithms.simsiam import SimSiam
 
-ALGORITHMS = {"simclr": SimCLR}
+ALGORITHMS = {"simclr": SimCLR, "byol": BYOL, "simsiam": SimSiam, "relic": ReLIC,
+              "barlow": BarlowTwins}
 
 # algorithms of the JAX package that the port does not run yet
-NOT_PORTED = ("moco", "byol", "dino", "pirl", "barlow", "simsiam", "relic",
-              "deep_cluster", "swav", "sela")
+NOT_PORTED = ("moco", "dino", "pirl", "deep_cluster", "swav", "sela")
 
 
 def build_algorithm(name: str, config, arch: str, data_info, device):

@@ -1,15 +1,18 @@
-"""The generic trainer (port of ssv_tpu/train/trainer.py, the slice's part).
+"""The generic trainer (port of ssv_tpu/train/trainer.py).
 
-Experiment init, the epoch loop and KNN validation every `eval_every`
-epochs. An epoch is a Python loop of steps over a (steps, batch) index
-matrix drawn on the device; augmentation, forward, backward and the
-optimizer update all stay on the device, and the per-step losses are read
-to the host once per epoch. Checkpoints, the final linear probe and
-`train_safe` are not ported yet (ROADMAP slice A, item 9).
+Experiment init, the epoch loop, KNN validation every `eval_every` epochs
+with full-state checkpoints (`best_model` when KNN improves, `latest` at
+every eval), and a final linear probe whose accuracy `train()` returns.
+An epoch is a Python loop of steps over a (steps, batch) index matrix drawn
+on the device; augmentation, forward, backward and the optimizer update all
+stay on the device, and the per-step losses are read to the host once per
+epoch. `train_safe()` flushes `latest` on an interrupt or error, and
+`args["load"]` resumes from a run's directory.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
@@ -18,8 +21,10 @@ import torch
 from ..core.experiment import DEFAULT_SEED, initialize_experiment
 from ..data.pipeline import DataPipeline
 from ..evals.knn import compute_neighbor_accuracy
+from ..evals.linear import linear_evaluation
 from ..utils.logging import get_wandb, progress_bar
 from .base import DataInfo, TrainState
+from .checkpoint import restore_state, save_state
 from .registry import build_algorithm
 
 STEADY_AFTER = 5  # steps of an epoch left out of its steady-state img/s
@@ -77,6 +82,10 @@ class Trainer:
         self.best_metric = 0.0
         self.start_epoch = 1
         self.epoch_stats: list[dict] = []
+        self.linear_eval_stats: dict | None = None
+
+        if self.args.get("load"):
+            self.load_checkpoint(self.args["load"])
 
     # ------------------------------------------------------------------
     # feature extraction (the reference's build_features)
@@ -105,6 +114,54 @@ class Trainer:
         fvecs, gt = self.features_for(self.state, "test")
         return compute_neighbor_accuracy(fvecs, gt, k=20)
 
+    def perform_linear_eval(self) -> float:
+        t0 = time.perf_counter()
+        train_vecs, train_gt = self.features_for(self.state, "train")
+        test_vecs, test_gt = self.features_for(self.state, "test")
+        acc = linear_evaluation(
+            config=self.config.get("linear_eval", {}),
+            train_data={"fvecs": train_vecs, "labels": train_gt},
+            test_data={"fvecs": test_vecs, "labels": test_gt},
+            num_classes=self.pipeline.num_classes)
+        self.linear_eval_stats = {"accuracy": acc, "seconds": time.perf_counter() - t0}
+        self.logger.write(f"Test linear eval accuracy: {acc:.4f}", mode="info")
+        return acc
+
+    # ------------------------------------------------------------------
+    # checkpoints: <output_dir>/<name> and <output_dir>/<name>.meta.json
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, name: str = "best_model", epoch: int | None = None):
+        save_state(os.path.join(self.output_dir, name), self.state, self.generator)
+        meta = {"best_metric": self.best_metric,
+                "start_epoch": (epoch + 1) if epoch is not None else self.start_epoch}
+        with open(os.path.join(self.output_dir, f"{name}.meta.json"), "w") as f:
+            json.dump(meta, f)
+
+    def load_checkpoint(self, ckpt_dir: str, name: str | None = None):
+        """Restores the full state from `ckpt_dir`: `name` if given, else
+        for `train` the rolling `latest` first (exact resume), then
+        `best_model`; for the inference tasks `best_model` first (the
+        reference's only checkpoint), then `latest`."""
+        if name:
+            candidates = [name]
+        elif self.args.get("task") == "train":
+            candidates = ["latest", "best_model"]
+        else:
+            candidates = ["best_model", "latest"]
+        for cand in candidates:
+            path = os.path.join(ckpt_dir, cand)
+            if os.path.exists(path):
+                restore_state(path, self.state, self.generator)
+                meta_path = os.path.join(ckpt_dir, f"{cand}.meta.json")
+                if os.path.exists(meta_path):
+                    with open(meta_path) as f:
+                        meta = json.load(f)
+                    self.best_metric = meta.get("best_metric", 0.0)
+                    self.start_epoch = meta.get("start_epoch", 1)
+                self.logger.print(f"Loaded checkpoint from {path}", mode="info")
+                return
+        raise FileNotFoundError(f"No checkpoint under {ckpt_dir} ({candidates})")
+
     # ------------------------------------------------------------------
     def _run_epoch(self, state: TrainState, idx_mat: torch.Tensor):
         """All steps of one epoch. Returns (state, {metric: (steps,) host
@@ -131,9 +188,14 @@ class Trainer:
         return state, metrics, steady
 
     def train(self) -> float:
-        """Runs the epochs; returns the best KNN accuracy seen."""
+        """Runs the epochs from `start_epoch`; returns the final linear
+        probe's accuracy."""
         self.logger.print("Beginning training.", mode="info")
-        state = self.algorithm.pre_train(self.state, self)
+        if self.start_epoch == 1:
+            state = self.algorithm.pre_train(self.state, self)
+        else:
+            # resumed: the algorithm's state came from the checkpoint
+            state = self.state
         for epoch in range(self.start_epoch, self.epochs + 1):
             state = self.algorithm.pre_epoch(state, self, epoch)
             idx_mat = self.pipeline.epoch_indices(self.generator)
@@ -166,8 +228,28 @@ class Trainer:
                     f"Epoch {epoch:4d}/{self.epochs:4d} [accuracy] {knn_acc:.4f}",
                     mode="val")
                 self.wandb.log({"KNN accuracy": knn_acc, "Epoch": epoch})
-                self.best_metric = max(self.best_metric, knn_acc)
+                if knn_acc > self.best_metric:
+                    self.best_metric = knn_acc
+                    self.save_checkpoint("best_model", epoch=epoch)
+                self.save_checkpoint("latest", epoch=epoch)
 
         self.state = state
-        self.logger.print("Completed training.", mode="info")
-        return self.best_metric
+        self.logger.print("Completed training. Beginning linear evaluation.",
+                          mode="info")
+        return self.perform_linear_eval()
+
+    def train_safe(self) -> float:
+        """`train()`; on an interrupt or error the full state is flushed to
+        `<output_dir>/latest` before the exception goes on, so the run
+        resumes from there with `load`."""
+        try:
+            return self.train()
+        except (KeyboardInterrupt, Exception):
+            try:
+                self.save_checkpoint("latest")
+                self.logger.print(
+                    f"Interrupted: state saved to {self.output_dir}/latest", mode="error")
+            except Exception as save_err:
+                self.logger.print(f"Saving the interrupted state failed: {save_err}",
+                                  mode="error")
+            raise

@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 import yaml
@@ -49,12 +50,80 @@ def test_cli_trains_simclr_resnet18(tmp_path):
     assert "Platform: cpu" in proc.stdout
 
 
-@pytest.mark.parametrize("argv", [["-t", "linear_eval", "-l", "x"],
-                                  ["-t", "get_features", "-l", "x"],
-                                  ["-t", "train", "-l", "x"]])
-def test_unported_tasks_exit_with_roadmap_pointer(argv):
-    with pytest.raises(SystemExit, match=r"not yet ported .*slice A, item 9"):
-        cli.main(["-c", "unused.yaml", "-m", "resnet18", "-a", "simclr", *argv])
+def _small_config(tmp_path, epochs):
+    """configs/byol.yaml on the fake CIFAR: 16x16 views, batch 16, a probe
+    of 2 epochs, float32."""
+    with open(os.path.join(REPO, "configs", "byol.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(epochs=epochs, eval_every=1, compute_dtype="float32")
+    cfg["linear_eval"].update(epochs=2, batch_size=16)
+    cfg["data"].update(batch_size=16, root=str(tmp_path / "data"))
+    cfg["data"]["transforms"]["train"]["random_resized_crop"]["size"] = [16, 16]
+    cfg["data"]["transforms"]["test"]["center_crop"]["size"] = [16, 16]
+    path = tmp_path / f"byol-{epochs}.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return str(path)
+
+
+def test_cli_train_then_inference_tasks(tmp_path, monkeypatch, capsys):
+    """train, then linear_eval -l and get_features -l on the run, as the JAX
+    CLI's end-to-end test drives main.py: checkpoints, the probe's log line,
+    the task-dependent checkpoint and the four binary .npy files."""
+    from torch_helpers import small_resnet18
+
+    small_resnet18(monkeypatch)
+    stage_fake_cifar(str(tmp_path / "data"), n_train=64, n_test=32)
+    monkeypatch.chdir(tmp_path)
+    cfg = _small_config(tmp_path, epochs=1)
+
+    def drive(*argv):
+        return cli.main(["-c", cfg, "-m", "resnet18", "-a", "byol", "--device", "cpu", *argv])
+
+    trainer = drive("-t", "train", "-o", "run")
+    run = tmp_path / "outputs" / "byol" / "resnet18" / "run"
+    for name in ("latest", "best_model", "latest.meta.json", "best_model.meta.json"):
+        assert (run / name).is_file(), name
+    assert 0.0 <= trainer.linear_eval_stats["accuracy"] <= 1.0
+    assert "Test linear eval accuracy" in (run / "trainlogs.txt").read_text()
+    capsys.readouterr()
+
+    with pytest.raises(ValueError, match="--load"):
+        drive("-t", "linear_eval", "-o", "noload")
+
+    drive("-t", "linear_eval", "-o", "lin", "-l", str(run))
+    out = capsys.readouterr().out
+    assert f"Loaded checkpoint from {run / 'best_model'}" in out
+    assert "Test linear eval accuracy" in out
+
+    drive("-t", "get_features", "-o", "feat", "-l", str(run))
+    assert f"Loaded checkpoint from {run / 'best_model'}" in capsys.readouterr().out
+    feat = tmp_path / "outputs" / "byol" / "resnet18" / "feat"
+    for name, shape in [("train_fvecs", (64, 128)), ("train_gt", (64,)),
+                        ("test_fvecs", (32, 128)), ("test_gt", (32,))]:
+        assert np.load(feat / f"{name}.npy").shape == shape, name
+    # BYOL's features are the online tower's L2-normalized output
+    np.testing.assert_allclose(np.linalg.norm(np.load(feat / "test_fvecs.npy"), axis=1),
+                               1.0, rtol=1e-5)
+
+
+def test_cli_resume_continues_from_latest(tmp_path, monkeypatch, capsys):
+    """train -l resumes from the run's `latest` and trains only the epochs
+    left."""
+    from torch_helpers import small_resnet18
+
+    small_resnet18(monkeypatch)
+    stage_fake_cifar(str(tmp_path / "data"), n_train=64, n_test=32)
+    monkeypatch.chdir(tmp_path)
+    argv = ["-m", "resnet18", "-a", "byol", "--device", "cpu", "-t", "train"]
+    first = cli.main(["-c", _small_config(tmp_path, epochs=1), *argv, "-o", "run"])
+    run = tmp_path / "outputs" / "byol" / "resnet18" / "run"
+    capsys.readouterr()
+
+    resumed = cli.main(["-c", _small_config(tmp_path, epochs=2), *argv, "-o", "more",
+                        "-l", str(run)])
+    assert f"Loaded checkpoint from {run / 'latest'}" in capsys.readouterr().out
+    assert [e["epoch"] for e in resumed.epoch_stats] == [2]
+    assert resumed.state.step == 2 * first.state.step == 8
 
 
 @pytest.mark.parametrize("entry", ["cli", "trainer", "cli_explicit_cuda"])
@@ -82,7 +151,7 @@ def test_unported_algorithm_and_arch_raise():
     from ssv_tpu_torch.train.registry import build_algorithm
 
     with pytest.raises(NotImplementedError, match="slice B"):
-        build_algorithm("byol", helpers.mini_config("byol"), "resnet18", None, "cpu")
+        build_algorithm("moco", helpers.mini_config("moco"), "resnet18", None, "cpu")
     with pytest.raises(NotImplementedError, match="slice C"):
         build_encoder("resnet50", {})
 

@@ -66,7 +66,8 @@ def test_init_scales_match_flax():
                                       reduce_bottom_conv=True, dtype=jnp.float32),
                     proj=JH.simclr_projection(128, 64, dtype=jnp.float32))
     params, bstats = init_module(jax.random.PRNGKey(1), jtower, x)
-    want = tower_state_dict(to_numpy_tree(params), to_numpy_tree(bstats), (1, 1))
+    want = tower_state_dict(to_numpy_tree(params), to_numpy_tree(bstats), (1, 1),
+                            {"proj": (0, 1)})
     tower = TTower(TR.ResNet(TR.BasicBlock, (1, 1), reduce_bottom_conv=True),
                    TH.simclr_projection(128, 64))
     tower.init_weights(torch.Generator().manual_seed(0))
@@ -104,7 +105,8 @@ def test_simclr_two_train_steps(fuse_views):
                          TH.simclr_projection(128, 16))
     tstate = talgo.init_state(torch.Generator().manual_seed(0))
     tstate.model.load_state_dict(tower_state_dict(
-        to_numpy_tree(jstate.params), to_numpy_tree(jstate.batch_stats), (1, 1)))
+        to_numpy_tree(jstate.params), to_numpy_tree(jstate.batch_stats), (1, 1),
+        {"proj": (0, 1)}))
 
     # the views are the JAX pipeline's output, handed to both sides
     u8 = np.random.RandomState(0).randint(0, 256, (8, size, size, 3), dtype=np.uint8)
@@ -121,7 +123,7 @@ def test_simclr_two_train_steps(fuse_views):
     assert tstate.step == 2
 
     want_sd = tower_state_dict(to_numpy_tree(jstate.params),
-                               to_numpy_tree(jstate.batch_stats), (1, 1))
+                               to_numpy_tree(jstate.batch_stats), (1, 1), {"proj": (0, 1)})
     got_sd = tstate.model.state_dict()
     for k, w in want_sd.items():
         tol = 1e-5 if k.endswith(("running_mean", "running_var")) else 1e-4

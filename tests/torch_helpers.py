@@ -2,6 +2,7 @@
 
 Each test makes its inputs with numpy from a seed, runs the JAX function and
 the port's counterpart on them, and compares the results as numpy arrays.
+Weights move from the JAX side to the port through ssv_tpu_torch/convert.py.
 """
 
 import os
@@ -38,3 +39,65 @@ def t(a, dtype=None):
     """numpy -> CPU torch tensor (a copy, so the numpy input stays intact)."""
     out = torch.from_numpy(np.array(a))
     return out if dtype is None else out.to(dtype)
+
+
+SMALL_STAGES = (1, 1)   # a two-stage ResNet: 128 features
+
+
+def small_resnet18(monkeypatch):
+    """Makes `resnet18` a two-stage ResNet in both packages' registries, so
+    an algorithm builds at test size through its usual constructor."""
+    from ssv_tpu.models import registry as jax_registry
+    from ssv_tpu.models import resnet as JR
+    from ssv_tpu_torch.models import registry as torch_registry
+    from ssv_tpu_torch.models import resnet as TR
+
+    monkeypatch.setitem(jax_registry.NETWORKS, "resnet18", {
+        "net": lambda **kw: JR.ResNet(block=JR.BasicBlock, stage_sizes=SMALL_STAGES, **kw),
+        "dim": 128})
+    monkeypatch.setitem(torch_registry.NETWORKS, "resnet18", {
+        "net": lambda **kw: TR.ResNet(TR.BasicBlock, SMALL_STAGES, **kw), "dim": 128})
+
+
+# each algorithm's towers: head -> layers followed by BatchNorm
+TOWER_BN = {
+    "simclr": ({"proj": (0, 1)}, None),
+    "byol": ({"proj": (0,), "pred": (0,)}, {"proj": (0,)}),
+    "relic": ({"proj": (0,), "pred": (0,)}, {"proj": (0,)}),
+    "simsiam": ({"proj": (0, 1, 2), "pred": (0,)}, {"proj": (0, 1, 2)}),
+    "barlow": ({"proj": (0, 1)}, None),
+}
+
+
+def load_jax_state(tstate, jstate, algo):
+    """Loads a JAX TrainState's params, BN statistics and EMA target into
+    the port's TrainState."""
+    from ssv_tpu_torch.convert import extra_state_dicts, tower_state_dict
+
+    online, target = TOWER_BN[algo]
+    tstate.model.load_state_dict(tower_state_dict(
+        to_numpy_tree(jstate.params), to_numpy_tree(jstate.batch_stats), SMALL_STAGES,
+        online))
+    for k, sd in extra_state_dicts(to_numpy_tree(jstate.extra), SMALL_STAGES,
+                                   target or {}).items():
+        tstate.extra[k].load_state_dict(sd)
+
+
+def assert_state_matches(tstate, jstate, algo, param_tol=1e-4, stat_tol=1e-5):
+    """The port's model (and EMA target) against the JAX state: params
+    within `param_tol`, BN running statistics within `stat_tol` (abs)."""
+    from ssv_tpu_torch.convert import extra_state_dicts, tower_state_dict
+
+    online, target = TOWER_BN[algo]
+    pairs = [("model", tstate.model, tower_state_dict(
+        to_numpy_tree(jstate.params), to_numpy_tree(jstate.batch_stats), SMALL_STAGES,
+        online))]
+    pairs += [(k, tstate.extra[k], sd) for k, sd in extra_state_dicts(
+        to_numpy_tree(jstate.extra), SMALL_STAGES, target or {}).items()]
+    assert {name for name, _, _ in pairs} == {"model", *tstate.extra}
+    for name, module, want in pairs:
+        got = module.state_dict()
+        for k, w in want.items():
+            tol = stat_tol if k.endswith(("running_mean", "running_var")) else param_tol
+            np.testing.assert_allclose(got[k].detach().cpu().numpy(), w.numpy(), rtol=0,
+                                       atol=tol, err_msg=f"{name}.{k}")
