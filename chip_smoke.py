@@ -23,11 +23,24 @@ exception from a `pre_epoch` hook on the algorithm (so `train_safe` saves
 Phase 5 trains SimSiam, ReLIC and Barlow Twins ResNet-18 from their shipped
 configs for 10 steps each through the Trainer.
 Phase 6 holds one float32 step of each of BYOL, SimSiam (both target
-modes), ReLIC and Barlow Twins at a tiny size on the card against the CPU,
-and the linear probe's loop likewise.
-Every training phase checks two photometric launches per train step. Any
-failure raises; the line before the last holds the kernels' numbers, the
-last line the JSON result.
+modes), ReLIC, Barlow Twins, MoCo, SwAV and SeLA at a tiny size on the card
+against the CPU, and the linear probe's loop likewise.
+Phase 7 runs MoCo ResNet-18 from configs/moco.yaml (batch 256, queue 1000,
+cut to 2 epochs) through the CLI, interrupted at epoch 2's start and
+resumed with `-l` as phase 4 does, and checks the queue's pointer and that
+the key tower moved.
+Phase 8 trains SwAV ResNet-18 from configs/swav.yaml (batch 512, 3000
+prototypes and bank rows) for one epoch through the CLI, and checks that
+`pre_train` filled every bank row.
+Phase 9 trains SeLA ResNet-18 from configs/sela.yaml (batch 500, 10 heads of
+128 clusters, cut to 2 epochs) through the CLI, with its two self-labelling
+sweeps (`pre_train` and epoch 1), and checks that the pseudo-labels use more
+than one cluster.
+Every training phase checks the photometric launches per train step (two,
+one for SeLA's single augmented view), prints its steady img/s and its peak
+memory above what it inherited, and checks that what each run inherits stays
+within 64 MiB of what the first run inherited. Any failure raises; the line
+before the last holds the kernels' numbers, the last line the JSON result.
 """
 
 from __future__ import annotations
@@ -46,6 +59,14 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-5          # kernel against plain version, max abs diff (float32)
+HELD_SLACK = 64 << 20   # bytes a run may inherit beyond what the first run did
+# photometric launches per train step on each path: two train views, or
+# SeLA's one augmented view
+LAUNCHES_PER_STEP = {"simclr": 2, "byol": 2, "simsiam": 2, "relic": 2, "barlow": 2,
+                     "moco": 2, "swav": 2, "sela": 1}
+# the batches the paths give the kernel: 512 (SimCLR, BYOL, SimSiam, ReLIC,
+# Barlow, SwAV), 256 (MoCo), 500 (SeLA); the first is the main path's
+TIMED_BATCHES = (512, 256, 500)
 
 
 def phase_env() -> str:
@@ -79,9 +100,7 @@ def phase_build() -> None:
 def phase_kernels(card: str) -> list[dict]:
     from ssv_tpu_torch.ops.photometric import (fused_photometric,
                                                photometric_reference)
-    from ssv_tpu_torch.tools.measure import (l2_flush, photometric_bound,
-                                             photometric_inputs, profiled_ms,
-                                             times_ms)
+    from ssv_tpu_torch.tools.measure import photometric_inputs
 
     g = torch.Generator(device="cuda").manual_seed(0)
     max_err = 0.0
@@ -102,11 +121,42 @@ def phase_kernels(card: str) -> list[dict]:
             raise AssertionError("photometric kernel: identity factors changed the input")
         max_err = max(max_err, err)
 
-    images, order, params, _ = photometric_inputs(512, 32, 32, g)
+    by_batch = [_time_photometric(B, g, card) for B in TIMED_BATCHES]
+    main = by_batch[0]
+    max_err = max([max_err] + [r["max_abs_err"] for r in by_batch])
+
+    def share(t):
+        return main["bound_ms"] / t if t else None
+
+    return [{"name": "fused_photometric", "route": "cuda",
+             "source": "ssv_tpu_torch/csrc/photometric.cu",
+             "replaces": "ssv_tpu/ops/pallas/photometric.py:119",
+             "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+             "ms_cold": main["ms_cold"], "ms_profiler": main["ms_profiler"],
+             "bound_share_profiler": share(main["ms_profiler"]),
+             "bound_share_cold": share(main["ms_cold"]), "by_batch": by_batch,
+             "card": card}]
+
+
+def _time_photometric(B: int, g, card: str) -> dict:
+    """The kernel at batch B, 32x32: held against the plain version, then
+    timed warm in L2 and cold by CUDA events and by the profiler, beside the
+    plain version and the least time the card needs for the work."""
+    from ssv_tpu_torch.ops.photometric import (fused_photometric,
+                                               photometric_reference)
+    from ssv_tpu_torch.tools.measure import (l2_flush, photometric_bound,
+                                             photometric_inputs, profiled_ms,
+                                             times_ms)
+
+    images, order, params, _ = photometric_inputs(B, 32, 32, g)
 
     def run():
         return fused_photometric(images, order, params)
 
+    err = (run() - photometric_reference(images, order, params)).abs().max().item()
+    if not err <= TOL:
+        raise AssertionError(f"photometric kernel disagrees at B={B}: {err} > {TOL}")
     flush = l2_flush()
     warm, cold = [], []
     for _ in range(2):
@@ -116,24 +166,15 @@ def phase_kernels(card: str) -> list[dict]:
     ms_profiler = profiled_ms({"kernel": run}, {"kernel": "photometric_kernel<"})["kernel"]
     plain_ms = statistics.median(times_ms(lambda: photometric_reference(images, order, params)))
     bound_ms, bound_by, nbytes, ops = photometric_bound(images, params)
-    print(f"[kernel] photometric bound B=512 32x32: {nbytes:,} bytes, {ops:,.0f} float ops "
+    print(f"[kernel] photometric bound B={B} 32x32: {nbytes:,} bytes, {ops:,.0f} float ops "
           f"-> {bound_ms * 1e3:.3f} us, bound by {bound_by}")
-    print(f"[kernel] photometric B=512 32x32: event median warm {ms:.4f} ms, cold "
-          f"{ms_cold:.4f} ms ({len(warm)} calls each); profiler "
+    print(f"[kernel] photometric B={B} 32x32: max |kernel - plain| = {err:.3e}; event median "
+          f"warm {ms:.4f} ms, cold {ms_cold:.4f} ms ({len(warm)} calls each); profiler "
           + (f"{ms_profiler * 1e3:.3f} us per launch" if ms_profiler else "saw no device time")
           + f"; plain version {plain_ms:.4f} ms | {card}")
-
-    def share(t):
-        return bound_ms / t if t else None
-
-    return [{"name": "fused_photometric", "route": "cuda",
-             "source": "ssv_tpu_torch/csrc/photometric.cu",
-             "replaces": "ssv_tpu/ops/pallas/photometric.py:119",
-             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-             "ms_cold": ms_cold, "ms_profiler": ms_profiler,
-             "bound_share_profiler": share(ms_profiler), "bound_share_cold": share(ms_cold),
-             "card": card}]
+    return {"batch": B, "max_abs_err": err, "ms": ms, "ms_cold": ms_cold,
+            "ms_profiler": ms_profiler, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes}
 
 
 # tiny float32 configs: a two-stage ResNet (128 features), 16x16, batch 8
@@ -145,6 +186,11 @@ SMALL_STEPS = {
     "relic": {"proj_dim": 16, "tau": 0.99,
               "loss_fn": {"normalize": True, "temperature": 1.0, "alpha": 0.5}},
     "barlow": {"proj_dim": 32, "loss_fn": {"normalize": False, "off_diagonal_weight": 0.005}},
+    "moco": {"proj_dim": 16, "queue_size": 64, "momentum": 0.99,
+             "loss_fn": {"normalize": True, "temperature": 0.07}},
+    "swav": {"hidden_dim": 32, "proj_dim": 16, "prototype_size": 40, "feature_bank_size": 48,
+             "loss_fn": {"temperature": 0.1, "sinkhorn_eps": 0.05, "sinkhorn_iters": 3}},
+    "sela": {"num_clusters": 8, "num_cluster_heads": 3, "lambda": 25, "self_label_iters": 5},
 }
 
 
@@ -153,8 +199,10 @@ def phase_small_steps(names) -> None:
     batch 8, on the card and on the CPU from the same weights and views: the
     CPU path is the one the tests hold against the JAX package. The views
     are given, so no kernel launches here. Loss within 1e-5 relative (to 1
-    where the loss is nearer 0, as SimSiam's mean cosine is), every weight
-    and BN statistic, the EMA target's included, within 1e-4."""
+    where the loss is nearer 0, as SimSiam's mean cosine is), every weight,
+    BN statistic and buffer (an EMA target or key tower, a queue or bank
+    and its pointer, SeLA's alpha, beta, pseudo-labels and best head) within
+    1e-4."""
     from ssv_tpu_torch.models import registry
     from ssv_tpu_torch.models.resnet import BasicBlock, ResNet
     from ssv_tpu_torch.train.base import DataInfo
@@ -164,6 +212,8 @@ def phase_small_steps(names) -> None:
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
     views = {k: torch.rand(8, 16, 16, 3, generator=g) for k in ("aug_1", "aug_2", "img")}
+    views["aug"] = views["aug_1"]
+    views["idx"] = torch.randperm(64, generator=g)[:8]
     resnet18 = registry.NETWORKS["resnet18"]
     registry.NETWORKS["resnet18"] = {
         "net": lambda **kw: ResNet(BasicBlock, (1, 1), **kw), "dim": 128}
@@ -180,6 +230,9 @@ def phase_small_steps(names) -> None:
             for dev in ("cpu", "cuda"):
                 algo = build_algorithm(algo_name, cfg, "resnet18", DataInfo(10, 64, 8, 8), dev)
                 state = algo.init_state(torch.Generator().manual_seed(0))
+                if algo_name == "sela":
+                    labels = state.extra["self_label"].pseudo_labels
+                    labels.copy_(torch.arange(64) % 8)
                 state, m = algo.train_step(state, {k: v.to(dev) for k, v in views.items()})
                 tensors = {f"model.{k}": v for k, v in state.model.state_dict().items()}
                 for part, module in state.extra.items():
@@ -222,50 +275,39 @@ def phase_probe_steps() -> None:
         raise AssertionError(f"the probe on the card disagrees with the CPU: {acc}")
 
 
-def phase_slice(card: str) -> dict:
-    """One epoch of SimCLR ResNet-18 through the port's CLI entry point."""
-    import yaml
+# ----------------------------------------------------------------------
+# what each run inherits, and its own peak above that
+# ----------------------------------------------------------------------
+_HELD: list[int] = []
 
-    from ssv_tpu_torch import main as cli
-    from ssv_tpu_torch.ops.photometric import fused_photometric
-    from ssv_tpu_torch.train.trainer import STEADY_AFTER
 
-    with open(os.path.join(HERE, "configs", "simclr.yaml")) as f:
-        cfg = yaml.safe_load(f)
-    cfg["epochs"] = 1
-    cfg["eval_every"] = 1
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg_path = os.path.join(tmp, "simclr.yaml")
-        with open(cfg_path, "w") as f:
-            yaml.safe_dump(cfg, f, sort_keys=False)
-        torch.cuda.reset_peak_memory_stats()
-        fused_photometric.launches = 0
-        trainer = cli.main(["-c", cfg_path, "-m", "resnet18", "-a", "simclr",
-                            "-t", "train", "-o", os.path.join(tmp, "run")])
-        launches = fused_photometric.launches
-        torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+def _held_before_run(name: str) -> int:
+    """Frees what earlier runs left, restarts the peak count, and returns the
+    bytes still allocated, which the run's own peak is read above. Fails if
+    they exceed what the first run inherited by more than HELD_SLACK: a run
+    that leaves its trainer's tensors on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _HELD.append(held)
+    print(f"[memory] before {name}: {_gib(held)} held; before the first run {_gib(_HELD[0])}")
+    if held > _HELD[0] + HELD_SLACK:
+        raise AssertionError(f"{name}: {_gib(held)} held before the run, more than "
+                             f"{_gib(HELD_SLACK)} above the {_gib(_HELD[0])} held before "
+                             f"the first run: an earlier run left tensors on the card")
+    return held
 
-    stats = trainer.epoch_stats[-1]
-    steps = stats["steps"]
-    losses = stats["losses"]
-    if launches != 2 * steps:
-        raise AssertionError(f"photometric kernel launched {launches} times "
-                             f"for {steps} train steps, expected {2 * steps}")
-    if len(losses) != steps or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"non-finite or missing train losses: {losses}")
-    acc = trainer.best_metric
-    if not 0.0 <= acc <= 1.0:
-        raise AssertionError(f"KNN accuracy {acc} outside [0, 1]")
-    print(f"[slice] simclr resnet18 batch {trainer.pipeline.batch_size}: {steps} steps, "
-          f"loss first {losses[0]:.4f} last {losses[-1]:.4f}, KNN accuracy {acc:.4f}")
-    print(f"[slice] steady-state {stats['steady_img_per_s']:.1f} img/s "
-          f"(steps {STEADY_AFTER + 1}-{steps}), peak memory "
-          f"{peak / 2**30:.3f} GiB | {card}")
-    probe = _check_probe("simclr", trainer, card)
-    return {"launches": launches, "steps": steps, "knn_accuracy": acc,
-            "img_per_s": stats["steady_img_per_s"], "peak_bytes": peak,
-            "linear_eval": probe}
+
+def _gib(nbytes: int) -> str:
+    return f"{nbytes / 2**30:.3f} GiB"
+
+
+def _check_launches(name: str, launches: int, steps: int) -> None:
+    want = LAUNCHES_PER_STEP[name] * steps
+    if launches != want:
+        raise AssertionError(f"{name}: photometric kernel launched {launches} times "
+                             f"for {steps} train steps, expected {want}")
 
 
 def _check_probe(name: str, trainer, card: str) -> dict:
@@ -275,134 +317,195 @@ def _check_probe(name: str, trainer, card: str) -> dict:
     print(f"[probe] {name}: linear probe accuracy {probe['accuracy']:.4f}, "
           f"{probe['seconds']:.2f} s (features of both splits and "
           f"{trainer.config['linear_eval']['epochs']} epochs) | {card}")
-    return probe
+    return dict(probe)
 
 
-def _check_launches(name: str, launches: int, steps: int) -> None:
-    if launches != 2 * steps:
-        raise AssertionError(f"{name}: photometric kernel launched {launches} times "
-                             f"for {steps} train steps, expected {2 * steps}")
+def _check_losses(name: str, stats: list[dict]) -> list[float]:
+    losses = [x for e in stats for x in e["losses"]]
+    if len(losses) != sum(e["steps"] for e in stats) or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{name}: non-finite or missing train losses: {losses}")
+    return losses
 
 
-def _free_memory() -> int:
-    """Frees what earlier runs left and restarts the peak count; returns the
-    bytes still allocated, which a run's own peak is read above."""
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    return torch.cuda.memory_allocated()
+def _config(tmp: str, name: str, **overrides) -> str:
+    """configs/<name>.yaml with top-level `overrides`, written to `tmp`."""
+    import yaml
+
+    with open(os.path.join(HERE, "configs", f"{name}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(overrides)
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+    return path
 
 
-def _gib(nbytes: int) -> str:
-    return f"{nbytes / 2**30:.3f} GiB"
+class _Hooks:
+    """Wraps the CLI's `build_algorithm` so a run's algorithm gets extra
+    hooks, restored on exit."""
+
+    def __init__(self, **hooks):
+        self.hooks = hooks
+
+    def __enter__(self):
+        from ssv_tpu_torch.train import trainer as trainer_mod
+
+        self.mod, self.build = trainer_mod, trainer_mod.build_algorithm
+
+        def build_with_hooks(*args, **kwargs):
+            algo = self.build(*args, **kwargs)
+            for name, wrap in self.hooks.items():
+                setattr(algo, name, wrap(getattr(algo, name)))
+            return algo
+
+        trainer_mod.build_algorithm = build_with_hooks
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_algorithm = self.build
+        return False
+
+
+# ----------------------------------------------------------------------
+# the paths
+# ----------------------------------------------------------------------
+def phase_slice(card: str) -> dict:
+    """One epoch of SimCLR ResNet-18 through the port's CLI entry point."""
+    from ssv_tpu_torch import main as cli
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.train.trainer import STEADY_AFTER
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = _config(tmp, "simclr", epochs=1, eval_every=1)
+        held = _held_before_run("simclr")
+        fused_photometric.launches = 0
+        trainer = cli.main(["-c", cfg_path, "-m", "resnet18", "-a", "simclr",
+                            "-t", "train", "-o", os.path.join(tmp, "run")])
+        launches = fused_photometric.launches
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+
+    stats = trainer.epoch_stats[-1]
+    steps = stats["steps"]
+    _check_launches("simclr", launches, steps)
+    losses = _check_losses("simclr", [stats])
+    acc = trainer.best_metric
+    if not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"KNN accuracy {acc} outside [0, 1]")
+    print(f"[slice] simclr resnet18 batch {trainer.pipeline.batch_size}: {steps} steps, "
+          f"loss first {losses[0]:.4f} last {losses[-1]:.4f}, KNN accuracy {acc:.4f}")
+    print(f"[slice] steady-state {stats['steady_img_per_s']:.1f} img/s "
+          f"(steps {STEADY_AFTER + 1}-{steps}), peak memory {_gib(peak)} above the "
+          f"{_gib(held)} held before | {card}")
+    probe = _check_probe("simclr", trainer, card)
+    return {"launches": launches, "steps": steps, "knn_accuracy": acc,
+            "img_per_s": stats["steady_img_per_s"], "peak_bytes": peak, "held_bytes": held,
+            "linear_eval": probe}
 
 
 class Interrupt(Exception):
-    """Raised by phase 4's `pre_epoch` hook to stop a run after epoch 1."""
+    """Raised by a `pre_epoch` hook to stop a run after epoch 1."""
 
 
-def phase_byol(card: str) -> dict:
-    """BYOL ResNet-18 from configs/byol.yaml, cut to 2 epochs, through the
+def _interrupted_and_resumed(name: str, tmp: str, card: str, **overrides) -> dict:
+    """configs/<name>.yaml, cut to 2 epochs with an eval each, through the
     CLI: stopped at the start of epoch 2 by an exception that `train_safe`
-    sees, resumed with `-l`, then `linear_eval -l` and `get_features -l`."""
-    import numpy as np
-    import yaml
-
+    sees (after it saved `latest`), then resumed with `-l`. Checks that the
+    EMA target or key tower (`state.extra["target"]`) moved in epoch 1."""
     from ssv_tpu_torch import main as cli
     from ssv_tpu_torch.ops.photometric import fused_photometric
-    from ssv_tpu_torch.train import trainer as trainer_mod
-    from ssv_tpu_torch.train.trainer import STEADY_AFTER
 
-    with open(os.path.join(HERE, "configs", "byol.yaml")) as f:
-        cfg = yaml.safe_load(f)
-    cfg["epochs"] = 2
-    cfg["eval_every"] = 1
     first = {}
 
-    def stop_after_epoch_1(state, trainer, epoch):
-        target = list(state.extra["target"].parameters())
-        if epoch == 1:
-            first["target"] = [p.detach().clone() for p in target]
-            return state
-        first["stats"] = trainer.epoch_stats
-        first["target_moved"] = max((p - q).abs().max().item()
-                                    for p, q in zip(target, first.pop("target")))
-        raise Interrupt
+    def stop_after_epoch_1(pre_epoch):
+        def hook(state, trainer, epoch):
+            target = list(state.extra["target"].parameters())
+            if epoch == 1:
+                first["target"] = [p.detach().clone() for p in target]
+                return pre_epoch(state, trainer, epoch)
+            first["stats"] = list(trainer.epoch_stats)
+            first["target_moved"] = max((p - q).abs().max().item()
+                                        for p, q in zip(target, first.pop("target")))
+            raise Interrupt
+        return hook
 
-    def build_with_hook(*args, **kwargs):
-        algo = build_algorithm(*args, **kwargs)
-        algo.pre_epoch = stop_after_epoch_1
-        return algo
-
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg_path = os.path.join(tmp, "byol.yaml")
-        with open(cfg_path, "w") as f:
-            yaml.safe_dump(cfg, f, sort_keys=False)
-        run = os.path.join(tmp, "run")
-        argv = ["-c", cfg_path, "-m", "resnet18", "-a", "byol"]
-        held = [_free_memory()]
-        fused_photometric.launches = 0
-        build_algorithm = trainer_mod.build_algorithm
-        trainer_mod.build_algorithm = build_with_hook
+    run = os.path.join(tmp, "run")
+    argv = ["-c", _config(tmp, name, epochs=2, eval_every=1, **overrides),
+            "-m", "resnet18", "-a", name]
+    held = [_held_before_run(f"{name} epoch 1")]
+    fused_photometric.launches = 0
+    with _Hooks(pre_epoch=stop_after_epoch_1):
         try:
             cli.main([*argv, "-t", "train", "-o", run])
         except Interrupt:
             pass
         else:
-            raise AssertionError("the run was not interrupted at epoch 2")
-        finally:
-            trainer_mod.build_algorithm = build_algorithm
-        saved = [n for n in ("latest", "best_model") if os.path.isfile(os.path.join(run, n))]
-        if saved != ["latest", "best_model"] or not first["target_moved"] > 0:
-            raise AssertionError(f"after the interrupt: checkpoints {saved}, EMA target "
-                                 f"moved {first['target_moved']}")
+            raise AssertionError(f"{name}: the run was not interrupted at epoch 2")
+    saved = [n for n in ("latest", "best_model") if os.path.isfile(os.path.join(run, n))]
+    if saved != ["latest", "best_model"] or not first["target_moved"] > 0:
+        raise AssertionError(f"{name} after the interrupt: checkpoints {saved}, the "
+                             f"target moved {first['target_moved']}")
+    first_peak = torch.cuda.max_memory_allocated() - held[0]
 
-        first_peak = torch.cuda.max_memory_allocated() - held[0]
-        held.append(_free_memory())
-        resumed = cli.main([*argv, "-t", "train", "-o", run, "-l", run])
-        launches = fused_photometric.launches
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() - held[1]
-
-        lin = cli.main([*argv, "-t", "linear_eval", "-o", os.path.join(tmp, "lin"),
-                        "-l", run])
-        feat_dir = os.path.join(tmp, "feat")
-        cli.main([*argv, "-t", "get_features", "-o", feat_dir, "-l", run])
-        shapes = {n: np.load(os.path.join(feat_dir, f"{n}.npy")).shape
-                  for n in ("train_fvecs", "train_gt", "test_fvecs", "test_gt")}
+    held.append(_held_before_run(f"{name} resumed"))
+    resumed = cli.main([*argv, "-t", "train", "-o", run, "-l", run])
+    launches = fused_photometric.launches
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held[1]
 
     stats = first["stats"] + resumed.epoch_stats
     steps = resumed.state.step
-    _check_launches("byol", launches, steps)
+    _check_launches(name, launches, steps)
     if [e["epoch"] for e in stats] != [1, 2] or steps != sum(e["steps"] for e in stats):
-        raise AssertionError(f"byol: epochs {[e['epoch'] for e in stats]}, {steps} steps")
-    losses = [x for e in stats for x in e["losses"]]
-    if not all(map(math.isfinite, losses)):
-        raise AssertionError("byol: non-finite train losses")
-    n_train, n_test = resumed.pipeline.n_train, resumed.pipeline.n_test
-    dim = int(resumed.config["proj_dim"])
+        raise AssertionError(f"{name}: epochs {[e['epoch'] for e in stats]}, {steps} steps")
+    losses = _check_losses(name, stats)
+    print(f"[{name}] resnet18 batch {resumed.pipeline.batch_size}: epoch 1 interrupted at "
+          f"epoch 2's start, `latest` and `best_model` saved, the target moved by up to "
+          f"{first['target_moved']:.3e}; resumed at epoch {resumed.epoch_stats[0]['epoch']}; "
+          f"{steps} steps in all, loss first {losses[0]:.4f} last {losses[-1]:.4f}, "
+          f"KNN {resumed.best_metric:.4f}")
+    print(f"[{name}] steady-state {stats[0]['steady_img_per_s']:.1f} img/s (epoch 1) and "
+          f"{stats[1]['steady_img_per_s']:.1f} img/s (epoch 2); peak memory of each run "
+          f"above what was held before it {_gib(first_peak)} (epoch 1 and its KNN eval) "
+          f"and {_gib(peak)} (resume, epoch 2, KNN, the probe); {launches} photometric "
+          f"launches for {steps} steps | {card}")
+    probe = _check_probe(f"{name} train", resumed, card)
+    return {"launches": launches, "steps": steps, "peak_bytes": [first_peak, peak],
+            "held_bytes": held, "img_per_s": [e["steady_img_per_s"] for e in stats],
+            "linear_eval": probe, "argv": argv, "run": run, "resumed": resumed}
+
+
+def phase_byol(card: str) -> dict:
+    """BYOL ResNet-18 from configs/byol.yaml, cut to 2 epochs, through the
+    CLI: interrupted and resumed, then `linear_eval -l` and
+    `get_features -l`."""
+    import numpy as np
+
+    from ssv_tpu_torch import main as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _interrupted_and_resumed("byol", tmp, card)
+        resumed = out.pop("resumed")
+        n_train, n_test = resumed.pipeline.n_train, resumed.pipeline.n_test
+        dim = int(resumed.config["proj_dim"])
+        del resumed
+        argv, run = out.pop("argv"), out.pop("run")
+        out["held_bytes"].append(_held_before_run("byol -t linear_eval"))
+        lin = cli.main([*argv, "-t", "linear_eval", "-o", os.path.join(tmp, "lin"),
+                        "-l", run])
+        out["linear_eval_task"] = _check_probe("byol -t linear_eval", lin, card)
+        del lin
+        feat_dir = os.path.join(tmp, "feat")
+        out["held_bytes"].append(_held_before_run("byol -t get_features"))
+        cli.main([*argv, "-t", "get_features", "-o", feat_dir, "-l", run])
+        shapes = {n: np.load(os.path.join(feat_dir, f"{n}.npy")).shape
+                  for n in ("train_fvecs", "train_gt", "test_fvecs", "test_gt")}
     want = {"train_fvecs": (n_train, dim), "train_gt": (n_train,),
             "test_fvecs": (n_test, dim), "test_gt": (n_test,)}
     if shapes != want:
         raise AssertionError(f"get_features wrote {shapes}, expected {want}")
-    print(f"[byol] resnet18 batch {resumed.pipeline.batch_size}: epoch 1 "
-          f"interrupted at epoch 2's start, `latest` and `best_model` saved, EMA target "
-          f"moved by up to {first['target_moved']:.3e}; resumed at epoch "
-          f"{resumed.epoch_stats[0]['epoch']}; {steps} steps in all, loss first "
-          f"{losses[0]:.4f} last {losses[-1]:.4f}, KNN {resumed.best_metric:.4f}")
-    print(f"[byol] steady-state {stats[0]['steady_img_per_s']:.1f} img/s (epoch 1) and "
-          f"{stats[1]['steady_img_per_s']:.1f} img/s (epoch 2), steps {STEADY_AFTER + 1} "
-          f"to the end of each; peak memory of each run above what was held before it "
-          f"{_gib(first_peak)} (epoch 1 and its KNN eval; {_gib(held[0])} held before) and "
-          f"{_gib(peak)} (resume, epoch 2, KNN, the probe; {_gib(held[1])} held before); "
-          f"{launches} photometric launches for {steps} steps | {card}")
-    probe = _check_probe("byol train", resumed, card)
-    probe_task = _check_probe("byol -t linear_eval", lin, card)
     print(f"[byol] get_features: {shapes}")
-    return {"launches": launches, "steps": steps, "peak_bytes": [first_peak, peak],
-            "held_bytes": held,
-            "img_per_s": [e["steady_img_per_s"] for e in stats],
-            "linear_eval": probe, "linear_eval_task": probe_task}
+    return out
 
 
 def phase_family(card: str) -> dict:
@@ -413,7 +516,7 @@ def phase_family(card: str) -> dict:
 
     out = {}
     for name in ("simsiam", "relic", "barlow"):
-        held = _free_memory()
+        held = _held_before_run(name)
         with tempfile.TemporaryDirectory() as tmp:
             trainer = Trainer({"config": os.path.join(HERE, "configs", f"{name}.yaml"),
                                "algo": name, "arch": "resnet18", "task": "train",
@@ -444,8 +547,147 @@ def phase_family(card: str) -> dict:
               f"launches | {card}")
         out[name] = {"launches": launches, "steps": state.step, "img_per_s": steady,
                      "peak_bytes": peak, "held_bytes": held}
-        del trainer, state, target, before, metrics
+        del trainer, state, target, before, metrics, idx_mat
     return out
+
+
+def phase_moco(card: str) -> dict:
+    """MoCo ResNet-18 from configs/moco.yaml (batch 256, queue 1000, m
+    0.999), cut to 2 epochs, interrupted and resumed through the CLI: the
+    queue's pointer after the resume is (steps x 256) mod 1000."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _interrupted_and_resumed("moco", tmp, card)
+        resumed = out.pop("resumed")
+        del out["argv"], out["run"]
+        queue = resumed.state.extra["queue"]
+        ptr, size = int(queue.ptr), queue.data.shape[0]
+        batch, steps = resumed.pipeline.batch_size, out["steps"]
+        zero_rows = int((queue.data.abs().sum(dim=1) == 0).sum())
+        del resumed, queue
+    if ptr != (steps * batch) % size or zero_rows:
+        raise AssertionError(f"moco: queue pointer {ptr} after {steps} steps of {batch} "
+                             f"(expected {(steps * batch) % size}), {zero_rows} zero rows")
+    print(f"[moco] queue of {size}: pointer {ptr} = ({steps} x {batch}) mod {size} after "
+          f"the resume, no zero row")
+    out["queue_ptr"] = ptr
+    return out
+
+
+def phase_swav(card: str) -> dict:
+    """SwAV ResNet-18 from configs/swav.yaml (batch 512, 3000 prototypes,
+    3000 bank rows, hidden 512) for one epoch through the CLI, with KNN and
+    the probe: `pre_train` leaves no zero row in the bank."""
+    from ssv_tpu_torch import main as cli
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.train.trainer import STEADY_AFTER
+
+    seen = {}
+
+    def check_bank(pre_train):
+        def hook(state, trainer):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = pre_train(state, trainer)
+            torch.cuda.synchronize()
+            seen["seconds"] = time.perf_counter() - t0
+            bank = state.extra["bank"].data
+            seen["zero_rows"] = int((bank.abs().sum(dim=1) == 0).sum())
+            seen["rows"] = bank.shape[0]
+            seen["launches"] = fused_photometric.launches
+            return state
+        return hook
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["-c", _config(tmp, "swav", epochs=1, eval_every=1), "-m", "resnet18",
+                "-a", "swav", "-t", "train", "-o", os.path.join(tmp, "run")]
+        held = _held_before_run("swav")
+        fused_photometric.launches = 0
+        with _Hooks(pre_train=check_bank):
+            trainer = cli.main(argv)
+        launches = fused_photometric.launches
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    stats = trainer.epoch_stats
+    steps = trainer.state.step
+    _check_launches("swav", launches, steps)
+    losses = _check_losses("swav", stats)
+    if seen.get("zero_rows") != 0 or seen.get("launches") != 0:
+        raise AssertionError(f"swav: after pre_train {seen}")
+    print(f"[swav] resnet18 batch {trainer.pipeline.batch_size}: pre_train filled all "
+          f"{seen['rows']} bank rows from the train split's features in "
+          f"{seen['seconds']:.2f} s (no zero row, no kernel launch); {steps} steps, loss "
+          f"first {losses[0]:.4f} last {losses[-1]:.4f}, all finite, KNN "
+          f"{trainer.best_metric:.4f}")
+    print(f"[swav] steady-state {stats[0]['steady_img_per_s']:.1f} img/s (steps "
+          f"{STEADY_AFTER + 1}-{steps}), peak memory {_gib(peak)} above the {_gib(held)} "
+          f"held before; {launches} photometric launches | {card}")
+    probe = _check_probe("swav", trainer, card)
+    return {"launches": launches, "steps": steps, "img_per_s": stats[0]["steady_img_per_s"],
+            "peak_bytes": peak, "held_bytes": held, "pre_train_seconds": seen["seconds"],
+            "linear_eval": probe}
+
+
+def phase_sela(card: str) -> dict:
+    """SeLA ResNet-18 from configs/sela.yaml (batch 500, 10 heads of 128
+    clusters, lambda 25, multistep), cut to 2 epochs through the CLI:
+    relabelling epochs {0, 1}, so two sweeps run (`pre_train` and epoch 1's
+    start), each timed; the pseudo-labels use more than one cluster."""
+    from ssv_tpu_torch import main as cli
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.train.trainer import STEADY_AFTER
+
+    sweeps = []
+
+    def timed(self_label):
+        def hook(state, trainer):
+            torch.cuda.synchronize()
+            t0, launches = time.perf_counter(), fused_photometric.launches
+            state = self_label(state, trainer)
+            torch.cuda.synchronize()
+            labels = state.extra["self_label"].pseudo_labels
+            sweeps.append({"seconds": time.perf_counter() - t0,
+                           "launches": fused_photometric.launches - launches,
+                           "clusters": int(labels.unique().numel())})
+            return state
+        return hook
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["-c", _config(tmp, "sela", epochs=2, eval_every=1), "-m", "resnet18",
+                "-a", "sela", "-t", "train", "-o", os.path.join(tmp, "run")]
+        held = _held_before_run("sela")
+        fused_photometric.launches = 0
+        with _Hooks(self_label=timed):
+            trainer = cli.main(argv)
+        launches = fused_photometric.launches
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    stats = trainer.epoch_stats
+    steps = trainer.state.step
+    _check_launches("sela", launches, steps)
+    losses = _check_losses("sela", stats)
+    sl = trainer.state.extra["self_label"]
+    clusters, best_head = int(sl.pseudo_labels.unique().numel()), int(sl.best_head)
+    if trainer.algorithm.sl_epochs != {0, 1} or len(sweeps) != 2:
+        raise AssertionError(f"sela: relabelling epochs {trainer.algorithm.sl_epochs}, "
+                             f"{len(sweeps)} sweeps")
+    if clusters <= 1 or any(s["launches"] for s in sweeps):
+        raise AssertionError(f"sela: {clusters} clusters in use, sweeps {sweeps}")
+    print(f"[sela] resnet18 batch {trainer.pipeline.batch_size}: 2 self-labelling sweeps of "
+          f"the {trainer.pipeline.n_train} train images ("
+          + ", ".join(f"{s['seconds']:.2f} s, {s['clusters']} clusters" for s in sweeps)
+          + f"), no kernel launch in them; pseudo-labels use {clusters} of "
+          f"{trainer.algorithm.num_clusters} clusters, best head {best_head}; {steps} "
+          f"steps, loss first {losses[0]:.4f} last {losses[-1]:.4f}, KNN "
+          f"{trainer.best_metric:.4f}")
+    print(f"[sela] steady-state {stats[0]['steady_img_per_s']:.1f} img/s (epoch 1) and "
+          f"{stats[1]['steady_img_per_s']:.1f} img/s (epoch 2), steps {STEADY_AFTER + 1} to "
+          f"the end of each; peak memory {_gib(peak)} above the {_gib(held)} held before; "
+          f"{launches} photometric launches for {steps} steps | {card}")
+    probe = _check_probe("sela", trainer, card)
+    return {"launches": launches, "steps": steps,
+            "img_per_s": [e["steady_img_per_s"] for e in stats], "peak_bytes": peak,
+            "held_bytes": held, "sweeps": sweeps, "clusters": clusters,
+            "best_head": best_head, "linear_eval": probe}
 
 
 def main() -> None:
@@ -456,8 +698,13 @@ def main() -> None:
     paths = {"simclr": phase_slice(card)["launches"],
              "byol": phase_byol(card)["launches"]}
     paths.update({k: v["launches"] for k, v in phase_family(card).items()})
-    phase_small_steps(["byol", "simsiam", "simsiam-frozen", "relic", "barlow"])
+    phase_small_steps(["byol", "simsiam", "simsiam-frozen", "relic", "barlow",
+                       "moco", "swav", "sela"])
     phase_probe_steps()
+    paths["moco"] = phase_moco(card)["launches"]
+    paths["swav"] = phase_swav(card)["launches"]
+    paths["sela"] = phase_sela(card)["launches"]
+    _held_before_run("the end")
     kernels[0]["launches"] = sum(paths.values())
     kernels[0]["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels}))

@@ -14,9 +14,18 @@ by the port's module names:
     `Dense_<i>` -> `fc.<i>`, and the head's n-th BatchNorm -> `bn.<i>` of
     the n-th layer in that head's `bn_after`.
 
-An algorithm's EMA target (`extra["target_params"]` and
-`extra["target_batch_stats"]` of the JAX `TrainState`) maps to the port's
-`state.extra["target"]` (`extra_state_dicts`).
+`model_state_dict` takes any algorithm's model: a Tower; SwAV's
+`{"model": Tower, "prototypes": {"table"}}` -> `tower.*` and
+`prototypes.table`; SeLA's `SelaNet` (`encoder`, `cluster_heads` with its
+(heads, dim, clusters) kernel, kept in that layout) -> `encoder.*` and
+`cluster_heads.*`.
+
+`extra_state_dicts` maps the rest of a JAX `TrainState.extra` to the
+port's `state.extra` modules: an EMA target (`target_params` /
+`target_batch_stats`) or MoCo's key tower (`key_params` / `key_batch_stats`)
+-> `target`; a `RingBuffer` (MoCo's `queue`, SwAV's `bank`) -> `data` and
+`ptr` of the module of the same name; SeLA's `alpha`, `beta`,
+`pseudo_labels` and `best_head` -> the buffers of `self_label`.
 """
 
 from __future__ import annotations
@@ -103,12 +112,46 @@ def tower_state_dict(params: dict, batch_stats: dict, stage_sizes: Sequence[int]
     return out
 
 
+def model_state_dict(params: dict, batch_stats: dict, stage_sizes: Sequence[int],
+                     bn_after: dict[str, Sequence[int]]) -> dict:
+    """Any algorithm's flax model variables -> the port's model state_dict."""
+    if set(params) == {"model", "prototypes"}:             # SwAV
+        out = {f"tower.{k}": v for k, v in tower_state_dict(
+            params["model"], batch_stats, stage_sizes, bn_after).items()}
+        out["prototypes.table"] = _t(params["prototypes"]["table"])
+        return out
+    if "cluster_heads" in params:                           # SeLA
+        out = resnet_state_dict(params["encoder"], batch_stats["encoder"],
+                                stage_sizes, prefix="encoder.")
+        out["cluster_heads.kernel"] = _t(params["cluster_heads"]["kernel"])
+        out["cluster_heads.bias"] = _t(params["cluster_heads"]["bias"])
+        return out
+    return tower_state_dict(params, batch_stats, stage_sizes, bn_after)
+
+
 def extra_state_dicts(extra: dict, stage_sizes: Sequence[int],
                       bn_after: dict[str, Sequence[int]]) -> dict:
-    """A JAX `TrainState.extra` holding an EMA target tower -> the port's
-    `{"target": state_dict}`; an empty `extra` -> {}."""
-    if not extra:
-        return {}
-    return {"target": tower_state_dict(extra["target_params"],
-                                       extra["target_batch_stats"], stage_sizes,
-                                       bn_after)}
+    """A JAX `TrainState.extra` -> the port's `{module name: state_dict}`;
+    an empty `extra` -> {}. `bn_after` describes the target tower's heads."""
+    out: dict = {}
+    done = set()
+    for prefix in ("target", "key"):
+        if f"{prefix}_params" in extra:
+            out["target"] = tower_state_dict(extra[f"{prefix}_params"],
+                                             extra[f"{prefix}_batch_stats"],
+                                             stage_sizes, bn_after)
+            done |= {f"{prefix}_params", f"{prefix}_batch_stats"}
+    for name in ("queue", "bank"):
+        if name in extra:
+            data, ptr = extra[name]                 # a RingBuffer (data, ptr)
+            out[name] = {"data": _t(data), "ptr": torch.tensor(int(ptr))}
+            done.add(name)
+    if "pseudo_labels" in extra:
+        out["self_label"] = {
+            "alpha": _t(extra["alpha"]), "beta": _t(extra["beta"]),
+            "pseudo_labels": torch.from_numpy(np.array(extra["pseudo_labels"], np.int64)),
+            "best_head": torch.tensor(int(extra["best_head"]))}
+        done |= {"alpha", "beta", "pseudo_labels", "best_head"}
+    if set(extra) - done:
+        raise KeyError(f"unexpected JAX extra state {sorted(set(extra) - done)}")
+    return out

@@ -8,7 +8,7 @@
   * epoch shuffling is `torch.randperm` on the device.
 
 Batch dicts keep the JAX package's keys: `double` ->
-{index, img, aug_1, aug_2, label}.
+{index, img, aug_1, aug_2, label}; `pseudolabel` -> {idx, img, aug, label}.
 """
 
 from __future__ import annotations
@@ -86,15 +86,32 @@ class DataPipeline:
                 }
             return fn
 
-        if kind in ("pseudolabel", "multicrop"):
+        if kind == "pseudolabel":
+            t = dict(self.transforms_cfg)
+            aug_t = build_batch_transform(t["aug"])
+            std_t = build_transform(t["std"])
+
+            def fn(images, labels, idx, generator):
+                raw = images[idx]
+                return {
+                    "idx": idx,
+                    "img": std_t(generator, raw),
+                    "aug": aug_t(generator, raw),
+                    "label": labels[idx],
+                }
+            return fn
+
+        if kind == "multicrop":
             raise NotImplementedError(
                 f"batch kind {kind!r} is not yet ported to ssv_tpu_torch "
                 f"(ROADMAP slice B)")
         raise ValueError(f"Unknown batch kind {kind!r}")
 
     def make_eval_transform(self) -> Callable:
-        """The deterministic test-time transform (center crop + normalize)."""
-        return build_transform(dict(self.transforms_cfg)["test"])
+        """The deterministic test-time transform (center crop + normalize):
+        the config's `test` transform, or `std` where it has no `test`."""
+        t = dict(self.transforms_cfg)
+        return build_transform(t.get("test", t.get("std")))
 
     def eval_batches(self, split: str = "test"):
         """Iterator of (idx on the device, count) covering a split, padded to

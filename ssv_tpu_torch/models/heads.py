@@ -1,9 +1,11 @@
-"""Projection heads (port of ssv_tpu/models/heads.py: the MLP heads of SimCLR,
-BYOL and ReLIC, SimSiam and Barlow Twins).
+"""Projection heads and prototype tables (port of ssv_tpu/models/heads.py:
+the MLP heads of SimCLR, BYOL and ReLIC, SimSiam, Barlow Twins and SwAV,
+MoCo's linear head, SwAV's prototypes and SeLA's cluster heads).
 
 The head's Linear layers run in the caller's autocast dtype (bf16 on the
 card) with f32 params; each BatchNorm takes and returns float32, and the
-head's output is float32, as in the flax head.
+head's output is float32, as in the flax head. `Prototypes` and
+`ClusterHeads` are float32 throughout, as their flax modules are.
 """
 
 from __future__ import annotations
@@ -19,15 +21,28 @@ from ..objectives.losses import l2_normalize
 from .resnet import BatchNorm1d
 
 
+def _lecun_trunc_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
+    """flax's lecun normal: truncated at 2 std, the std corrected for the
+    truncation."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+ACTS = {"relu": F.relu, "gelu": F.gelu}   # flax's gelu is the exact one here
+
+
 class MLPHead(nn.Module):
     """MLP head driven by a layer spec: `widths` of the Linear layers,
-    `bn_after` the (0-indexed) layers followed by BatchNorm, ReLU between
-    layers and none after the last; `l2_norm_out` L2-normalizes the output."""
+    `bn_after` the (0-indexed) layers followed by BatchNorm, `act` ("relu" or
+    the exact "gelu") between layers and none after the last; `l2_norm_out`
+    L2-normalizes the output."""
 
     def __init__(self, in_dim: int, widths: Sequence[int],
-                 bn_after: Sequence[int] = (), l2_norm_out: bool = False):
+                 bn_after: Sequence[int] = (), l2_norm_out: bool = False,
+                 act: str = "relu"):
         super().__init__()
         self.l2_norm_out = l2_norm_out
+        self.act = ACTS[act]
         dims = [in_dim, *widths]
         self.fc = nn.ModuleList(nn.Linear(dims[i], dims[i + 1])
                                 for i in range(len(widths)))
@@ -39,7 +54,7 @@ class MLPHead(nn.Module):
             if str(i) in self.bn:
                 x = self.bn[str(i)](x.float())
             if i < len(self.fc) - 1:
-                x = F.relu(x)
+                x = self.act(x)
         x = x.float()
         return l2_normalize(x) if self.l2_norm_out else x
 
@@ -48,9 +63,7 @@ class MLPHead(nn.Module):
         """flax Dense defaults: lecun normal (truncated at 2 std, std
         corrected for the truncation) kernels, zero biases; BN 1 and 0."""
         for fc in self.fc:
-            std = math.sqrt(1.0 / fc.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(fc.weight, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
+            _lecun_trunc_normal_(fc.weight, fc.in_features, generator)
             nn.init.zeros_(fc.bias)
         for bn in self.bn.values():
             nn.init.ones_(bn.weight)
@@ -81,3 +94,61 @@ def barlow_projection(input_dim: int, proj_dim: int) -> MLPHead:
     """fc(d,p)-bn-relu-fc(p,p)-bn-relu-fc(p,p), L2-normalized output."""
     return MLPHead(input_dim, (proj_dim, proj_dim, proj_dim), bn_after=(0, 1),
                    l2_norm_out=True)
+
+
+def swav_projection(input_dim: int, hidden_dim: int, proj_dim: int) -> MLPHead:
+    """fc(d,h)-bn-gelu-fc(h,p)-bn, L2-normalized output."""
+    return MLPHead(input_dim, (hidden_dim, proj_dim), bn_after=(0, 1), act="gelu",
+                   l2_norm_out=True)
+
+
+class LinearHead(MLPHead):
+    """ReLU then Linear (MoCo's head): bf16 under autocast, float32 out; a
+    one-layer `MLPHead` behind the ReLU."""
+
+    def __init__(self, in_dim: int, features: int):
+        super().__init__(in_dim, (features,))
+
+    def forward(self, x):
+        return super().forward(F.relu(x))
+
+
+class Prototypes(nn.Module):
+    """A (count, dim) table drawn N(0, 1), its rows L2-normalized on read;
+    trained with the model."""
+
+    def __init__(self, count: int, dim: int):
+        super().__init__()
+        self.table = nn.Parameter(torch.empty(count, dim))
+
+    def forward(self):
+        return l2_normalize(self.table)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        nn.init.normal_(self.table, 0.0, 1.0, generator=generator)
+
+
+class ClusterHeads(nn.Module):
+    """`heads` parallel linear heads of `clusters` outputs over the features,
+    as one batched product over a stacked (heads, dim, clusters) kernel:
+    (batch, dim) -> (heads, batch, clusters) logits, in float32 with
+    autocast off, as the flax module takes float32 features and params."""
+
+    def __init__(self, dim: int, num_heads: int, num_clusters: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(num_heads, dim, num_clusters))
+        self.bias = nn.Parameter(torch.empty(num_heads, num_clusters))
+
+    def forward(self, features):
+        with torch.autocast(features.device.type, enabled=False):
+            return (torch.einsum("bd,hdk->hbk", features.float(), self.kernel)
+                    + self.bias[:, None, :])
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        """flax's lecun normal over the (heads, dim, clusters) shape counts
+        heads x dim inputs (the heads axis is a receptive field to it)."""
+        heads, dim, _ = self.kernel.shape
+        _lecun_trunc_normal_(self.kernel, heads * dim, generator)
+        nn.init.zeros_(self.bias)

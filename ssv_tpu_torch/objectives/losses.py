@@ -1,10 +1,13 @@
-"""SSL objectives (port of ssv_tpu/objectives/losses.py: NT-Xent, BYOL, SimSiam,
-Barlow Twins and ReLIC).
+"""SSL objectives (port of ssv_tpu/objectives/losses.py: NT-Xent, MoCo's
+InfoNCE, BYOL, SimSiam, Barlow Twins, ReLIC, SwAV's Sinkhorn codes and
+swapped prediction, and SeLA's self-labelling).
 
 Losses take and compute in float32; call them outside any autocast region.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -37,6 +40,20 @@ def nt_xent(zi, zj, temperature: float = 1.0, normalize: bool = False):
     pos_idx = torch.cat([ar + n, ar])
     pos = torch.gather(sim, 1, pos_idx[:, None])[:, 0]
     return (torch.logsumexp(sim, dim=1) - pos).mean()
+
+
+def moco_nce(query, keys, queue, temperature: float = 1.0, normalize: bool = True):
+    """InfoNCE against a queue: the positive of each query is its own key,
+    the negatives the queue rows; CE with label 0. The queue rows are used
+    as stored, not re-normalized (the reference's quirk: they are normalized
+    when pushed)."""
+    if normalize:
+        query, keys = l2_normalize(query), l2_normalize(keys)
+    pos = (query * keys).sum(dim=-1, keepdim=True) / temperature
+    neg = (query @ queue.T) / temperature
+    logits = torch.cat([pos, neg], dim=1)
+    labels = torch.zeros(query.shape[0], dtype=torch.int64, device=query.device)
+    return softmax_cross_entropy(logits, labels)
 
 
 def byol_mse(online_1, online_2, target_1, target_2):
@@ -87,3 +104,53 @@ def relic_loss(zi, zj, z_orig, temperature: float = 1.0, alpha: float = 0.5,
     else:
         kl = (log_pj.exp() * (log_pj - torch.softmax(sim_io, dim=-1))).sum()
     return contrastive + alpha * kl
+
+
+@torch.no_grad()
+def sinkhorn_codes(scores, eps: float = 0.05, n_iters: int = 3):
+    """Sinkhorn-Knopp codes: exp(s / eps)^T scaled in turn to uniform row
+    (over the K prototypes) and column (over the B samples) marginals,
+    `n_iters` times, then column-normalized and transposed back to (B, K).
+    Each step runs in the log domain (logsumexp), so s / eps > 88, where
+    exp overflows float32, stays finite. No gradient flows through."""
+    lq = (scores / eps).T                       # (K, B) log kernel
+    k, b = lq.shape
+    lr, lc = -math.log(k), -math.log(b)         # log uniform marginals
+    for _ in range(n_iters):
+        lq = lq - torch.logsumexp(lq, dim=1, keepdim=True) + lr
+        lq = lq - torch.logsumexp(lq, dim=0, keepdim=True) + lc
+    return torch.exp(lq - torch.logsumexp(lq, dim=0, keepdim=True)).T
+
+
+def swav_loss(z1, z2, prototypes, bank_features=None, temperature: float = 0.1,
+              sinkhorn_eps: float = 0.05, sinkhorn_iters: int = 3):
+    """Swapped prediction: the codes of view 1 supervise view 2 and the
+    codes of view 2 view 1. The bank's rows, detached, are concatenated to
+    both views to fatten the assignment problem. Scores in float32."""
+    if bank_features is not None:
+        bank_features = bank_features.detach()
+        z1 = torch.cat([z1, bank_features])
+        z2 = torch.cat([z2, bank_features])
+    s1, s2 = z1 @ prototypes.T, z2 @ prototypes.T
+    q1 = sinkhorn_codes(s1, sinkhorn_eps, sinkhorn_iters)
+    q2 = sinkhorn_codes(s2, sinkhorn_eps, sinkhorn_iters)
+    p1 = torch.log_softmax(s1 / temperature, dim=-1)
+    p2 = torch.log_softmax(s2 / temperature, dim=-1)
+    return -0.5 * ((q1 * p2).sum(dim=1) + (q2 * p1).sum(dim=1)).mean()
+
+
+@torch.no_grad()
+def sela_self_label(logits, alpha, beta, lmbda: float = 25.0, n_iters: int = 80):
+    """The reference's batch-wise self-labelling: P = log_softmax(logits) **
+    lmbda as (K, B); alpha = 1 / (P beta) and beta = 1 / (alpha^T P) in turn
+    for `n_iters`; the labels are the argmax over K of diag(alpha) P
+    diag(beta). Returns (labels, alpha, beta): alpha (K, 1) and beta (B, 1)
+    carry over to the next batch. For an odd lmbda P is negative, as
+    `torch.pow` and `jnp` both define it; past |log p| of about 34.8, P
+    overflows float32 at lmbda 25 on both sides."""
+    p = (torch.log_softmax(logits, dim=-1) ** lmbda).T      # (K, B)
+    for _ in range(n_iters):
+        alpha = 1.0 / (p @ beta)
+        beta = 1.0 / (alpha.T @ p).T
+    scaled = (alpha * p * beta.T).T                          # (B, K)
+    return scaled.argmax(dim=-1), alpha, beta

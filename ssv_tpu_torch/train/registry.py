@@ -4,15 +4,18 @@ from __future__ import annotations
 
 from .algorithms.barlow import BarlowTwins
 from .algorithms.byol import BYOL
+from .algorithms.moco import MoCo
 from .algorithms.relic import ReLIC
+from .algorithms.sela import SeLA
 from .algorithms.simclr import SimCLR
 from .algorithms.simsiam import SimSiam
+from .algorithms.swav import SwAV
 
 ALGORITHMS = {"simclr": SimCLR, "byol": BYOL, "simsiam": SimSiam, "relic": ReLIC,
-              "barlow": BarlowTwins}
+              "barlow": BarlowTwins, "moco": MoCo, "swav": SwAV, "sela": SeLA}
 
 # algorithms of the JAX package that the port does not run yet
-NOT_PORTED = ("moco", "dino", "pirl", "deep_cluster", "swav", "sela")
+NOT_PORTED = ("dino", "pirl", "deep_cluster")
 
 
 def build_algorithm(name: str, config, arch: str, data_info, device):

@@ -90,20 +90,33 @@ class Trainer:
     # ------------------------------------------------------------------
     # feature extraction (the reference's build_features)
     # ------------------------------------------------------------------
+    def _stream(self, state: TrainState, fn, split: str):
+        """Yields (fn(state, images), idx, count) over `split` in order, in
+        batches of the train batch (the last padded; `count` real rows),
+        the images through the eval transform with a fixed generator of
+        seed 0, as the JAX trainer's PRNGKey(0), for any random op. What
+        `fn` returns stays on the device."""
+        images, _ = self.pipeline.arrays(split)
+        generator = torch.Generator(device=self.device).manual_seed(0)
+        for idx, count in self.pipeline.eval_batches(split):
+            yield fn(state, self._eval_t(generator, images[idx])), idx, count
+
+    def stream_train(self, state: TrainState, fn):
+        """`_stream` over the train split (SeLA's self-labelling)."""
+        return self._stream(state, fn, "train")
+
     def features_for(self, state: TrainState, split: str = "train",
                      progress_desc: str | None = None):
         """Returns (fvecs, labels) as tensors on the device, with the
         algorithm's embed semantics."""
-        images, labels = self.pipeline.arrays(split)
+        _, labels = self.pipeline.arrays(split)
+        n = labels.shape[0]
+        n_batches = -(-n // self.pipeline.batch_size)
         chunks = []
-        # a fixed stream, as the JAX trainer's PRNGKey(0), for any random op
-        generator = torch.Generator(device=self.device).manual_seed(0)
-        batches = list(self.pipeline.eval_batches(split))
-        for i, (idx, count) in enumerate(batches):
-            x = self._eval_t(generator, images[idx])
-            chunks.append(self.algorithm.embed(state, x)[:count])
+        for i, (z, _, count) in enumerate(self._stream(state, self.algorithm.embed, split)):
+            chunks.append(z[:count])
             if progress_desc:
-                progress_bar(progress=(i + 1) / len(batches), desc=progress_desc)
+                progress_bar(progress=(i + 1) / n_batches, desc=progress_desc)
         return torch.cat(chunks), labels
 
     def build_features(self, split: str = "train"):

@@ -1,10 +1,18 @@
 """Logging and terminal progress.
 
 The port's copy of ssv_tpu/utils/logging.py (reference utils/common.py:18-89):
-colored stdout + file logger and a `\r` progress bar. wandb is optional:
-without the package, `get_wandb()` returns a recorder that mirrors the wandb
-API (`init`, `log`) and appends JSON lines to
-`<output_dir>/wandb_offline.jsonl` instead.
+colored stdout + file logger and a `\r` progress bar. wandb is optional
+and opt-in: `get_wandb()` starts a wandb run only when the package is
+installed and the environment configures it (`WANDB_API_KEY` or
+`WANDB_MODE`, wandb's own settings for runs without a terminal); otherwise
+it returns a recorder that mirrors the wandb API (`init`, `log`) and appends
+JSON lines to `<output_dir>/wandb_offline.jsonl`.
+
+`wandb.init` is never tried and left to fail: a failed `wandb.init` keeps
+its exception in wandb's error reporting for the life of the process, and
+that exception's frames reach the caller's (`Trainer.__init__`, the
+script's), whose locals then keep the whole trainer, its dataset and
+weights on the device, alive.
 """
 
 from __future__ import annotations
@@ -94,19 +102,18 @@ class _WandbShim:
 
     def __init__(self):
         self._run: _OfflineRun | None = None
-        try:
-            import wandb  # noqa: F401
+        self._wandb = None
+        if {"WANDB_API_KEY", "WANDB_MODE"} & set(os.environ):
+            try:
+                import wandb
 
-            self._wandb = wandb
-        except ImportError:
-            self._wandb = None
+                self._wandb = wandb
+            except ImportError:
+                pass
 
     def init(self, project: str | None = None, output_dir: str | None = None, **kwargs):
         if self._wandb is not None:
-            try:
-                return self._wandb.init(project=project, **kwargs)
-            except Exception:
-                pass
+            return self._wandb.init(project=project, **kwargs)
         self._run = _OfflineRun(output_dir, project)
         return self._run
 

@@ -1,9 +1,14 @@
 """The port's checkpoints through its Trainer on the CPU: a round trip, the
 task-dependent choice of `latest` and `best_model`, `train_safe` saving on
-failure, and exact resume (an interrupted and resumed BYOL run equals the
-run that was never stopped, bit for bit)."""
+failure, exact resume (an interrupted and resumed BYOL, MoCo or SeLA run
+equals the run that was never stopped, bit for bit), and a dropped Trainer
+freeing its model and dataset."""
 
+import gc
 import os
+import sys
+import types
+import weakref
 
 import pytest
 import torch
@@ -20,7 +25,8 @@ class Stop(Exception):
     pass
 
 
-def _trainer(tmp_path, monkeypatch, algo="byol", epochs=2, output="run", **args):
+def _trainer(tmp_path, monkeypatch, algo="byol", epochs=2, output="run", cfg_extra=None,
+             **args):
     """A Trainer on a tiny fake CIFAR-10 (64 train, 32 test images, 16x16
     views, batch 16: 4 steps an epoch) with a two-stage ResNet."""
     small_resnet18(monkeypatch)
@@ -31,8 +37,10 @@ def _trainer(tmp_path, monkeypatch, algo="byol", epochs=2, output="run", **args)
     cfg = helpers.mini_config(algo, epochs=epochs, batch_size=16)
     cfg["compute_dtype"] = "float32"
     cfg["data"]["root"] = str(data)
-    cfg["data"]["transforms"]["train"]["random_resized_crop"]["size"] = [16, 16]
-    cfg["data"]["transforms"]["test"]["center_crop"]["size"] = [16, 16]
+    views = cfg["data"]["transforms"]
+    views["aug" if algo == "sela" else "train"]["random_resized_crop"]["size"] = [16, 16]
+    views["std" if algo == "sela" else "test"]["center_crop"]["size"] = [16, 16]
+    cfg.update(cfg_extra or {})
     path = tmp_path / f"{algo}-{epochs}.yaml"
     path.write_text(yaml.safe_dump(cfg, sort_keys=False))
     return Trainer({"config": str(path), "algo": algo, "arch": "resnet18", "task": "train",
@@ -141,3 +149,84 @@ def test_exact_resume_byol(tmp_path, monkeypatch):
     assert resumed.epoch_stats[0]["losses"] == straight.epoch_stats[1]["losses"]
     _assert_equal_states(straight, resumed)
     assert resumed.state.step == 8
+
+
+# MoCo: a queue of 40 rows, pushed across its end within an epoch; SeLA in
+# the reference mode, which threads alpha and beta through each sweep
+STATEFUL = [("moco", {"queue_size": 40}),
+            ("sela", {"self_label_mode": "reference", "self_label_iters": 5})]
+
+
+@pytest.mark.parametrize("algo,cfg_extra", STATEFUL, ids=["moco", "sela"])
+def test_exact_resume_stateful(algo, cfg_extra, tmp_path, monkeypatch):
+    """As `test_exact_resume_byol`, for the state that is neither weights
+    nor optimizer: MoCo's key tower, queue and pointer; SeLA's alpha, beta,
+    pseudo-labels and best head (relabelled at `pre_train` and at epoch 1's
+    start, so the resumed run starts from the checkpoint's labels)."""
+    kw = dict(algo=algo, cfg_extra=cfg_extra)
+    straight = _trainer(tmp_path, monkeypatch, output="straight", **kw)
+    acc = straight.train()
+
+    cut = _trainer(tmp_path, monkeypatch, output="cut", **kw)
+    pre_epoch = cut.algorithm.pre_epoch
+
+    def stop_at_epoch_2(state, trainer, epoch):
+        if epoch == 2:
+            raise Stop
+        return pre_epoch(state, trainer, epoch)
+
+    cut.algorithm.pre_epoch = stop_at_epoch_2
+    with pytest.raises(Stop):
+        cut.train_safe()
+    resumed = _trainer(tmp_path, monkeypatch, output="resumed", load=cut.output_dir, **kw)
+    assert resumed.start_epoch == 2
+    assert resumed.train() == acc
+    assert resumed.epoch_stats[0]["losses"] == straight.epoch_stats[1]["losses"]
+    _assert_equal_states(straight, resumed)
+    extra = resumed.state.extra
+    if algo == "moco":
+        assert int(extra["queue"].ptr) == (8 * 16) % 40
+    else:
+        assert straight.algorithm.sl_epochs == {0, 1}
+        assert len(extra["self_label"].pseudo_labels.unique()) > 1
+
+
+def test_dropped_trainer_frees_its_tensors(tmp_path, monkeypatch):
+    """A Trainer that trained a step and is dropped leaves nothing alive:
+    weak references to its model and its dataset tensor die at
+    `gc.collect()`. With a wandb package installed whose `init` fails and
+    keeps the exception (as wandb's error reporting does, and with it every
+    frame up the stack), the Trainer does not call it unless the
+    environment configures wandb, so nothing of the Trainer is kept."""
+    from ssv_tpu_torch.utils import logging as port_logging
+
+    kept = []
+
+    def failing_init(**kwargs):
+        try:
+            raise RuntimeError("wandb api_key not configured")
+        except RuntimeError as e:
+            kept.append(e)          # the exception, its traceback and frames
+            raise
+
+    fake = types.SimpleNamespace(init=failing_init, run=None, log=lambda m: None)
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    monkeypatch.delenv("WANDB_API_KEY", raising=False)
+    monkeypatch.delenv("WANDB_MODE", raising=False)
+    monkeypatch.setattr(port_logging, "_shim", None)
+
+    trainer = _trainer(tmp_path, monkeypatch, algo="simclr")
+    trainer.state, _, _ = trainer._run_epoch(
+        trainer.state, trainer.pipeline.epoch_indices(trainer.generator)[:1])
+    refs = [weakref.ref(trainer.state.model), weakref.ref(trainer.pipeline._train_images)]
+    del trainer
+    gc.collect()
+    assert [r() for r in refs] == [None, None]
+    assert kept == []
+    assert port_logging.get_wandb()._wandb is None
+
+    # configured: the run is wandb's, and its failure is the caller's to see
+    monkeypatch.setenv("WANDB_MODE", "online")
+    monkeypatch.setattr(port_logging, "_shim", None)
+    with pytest.raises(RuntimeError, match="api_key"):
+        port_logging.get_wandb().init(project="p", output_dir=str(tmp_path))

@@ -59,45 +59,57 @@ def small_resnet18(monkeypatch):
         "net": lambda **kw: TR.ResNet(TR.BasicBlock, SMALL_STAGES, **kw), "dim": 128})
 
 
-# each algorithm's towers: head -> layers followed by BatchNorm
+# each algorithm's towers: head -> layers followed by BatchNorm (SeLA's
+# model has cluster heads and no tower head)
 TOWER_BN = {
     "simclr": ({"proj": (0, 1)}, None),
+    "moco": ({"proj": ()}, {"proj": ()}),
     "byol": ({"proj": (0,), "pred": (0,)}, {"proj": (0,)}),
     "relic": ({"proj": (0,), "pred": (0,)}, {"proj": (0,)}),
     "simsiam": ({"proj": (0, 1, 2), "pred": (0,)}, {"proj": (0, 1, 2)}),
     "barlow": ({"proj": (0, 1)}, None),
+    "swav": ({"proj": (0, 1)}, None),
+    "sela": ({}, None),
 }
 
 
-def load_jax_state(tstate, jstate, algo):
-    """Loads a JAX TrainState's params, BN statistics and EMA target into
-    the port's TrainState."""
-    from ssv_tpu_torch.convert import extra_state_dicts, tower_state_dict
+def _jax_state_dicts(jstate, algo):
+    """{module name: state_dict} of a JAX TrainState, through convert.py."""
+    from ssv_tpu_torch.convert import extra_state_dicts, model_state_dict
 
     online, target = TOWER_BN[algo]
-    tstate.model.load_state_dict(tower_state_dict(
-        to_numpy_tree(jstate.params), to_numpy_tree(jstate.batch_stats), SMALL_STAGES,
-        online))
-    for k, sd in extra_state_dicts(to_numpy_tree(jstate.extra), SMALL_STAGES,
-                                   target or {}).items():
-        tstate.extra[k].load_state_dict(sd)
+    out = {"model": model_state_dict(to_numpy_tree(jstate.params),
+                                     to_numpy_tree(jstate.batch_stats), SMALL_STAGES,
+                                     online)}
+    out.update(extra_state_dicts(to_numpy_tree(jstate.extra), SMALL_STAGES, target or {}))
+    return out
+
+
+def load_jax_state(tstate, jstate, algo):
+    """Loads a JAX TrainState's params, BN statistics and extra state (an EMA
+    target or key tower, a queue or bank, SeLA's self-labelling state) into
+    the port's TrainState."""
+    for name, sd in _jax_state_dicts(jstate, algo).items():
+        (tstate.model if name == "model" else tstate.extra[name]).load_state_dict(sd)
 
 
 def assert_state_matches(tstate, jstate, algo, param_tol=1e-4, stat_tol=1e-5):
-    """The port's model (and EMA target) against the JAX state: params
-    within `param_tol`, BN running statistics within `stat_tol` (abs)."""
-    from ssv_tpu_torch.convert import extra_state_dicts, tower_state_dict
-
-    online, target = TOWER_BN[algo]
-    pairs = [("model", tstate.model, tower_state_dict(
-        to_numpy_tree(jstate.params), to_numpy_tree(jstate.batch_stats), SMALL_STAGES,
-        online))]
-    pairs += [(k, tstate.extra[k], sd) for k, sd in extra_state_dicts(
-        to_numpy_tree(jstate.extra), SMALL_STAGES, target or {}).items()]
+    """The port's model and extra modules against the JAX state: params
+    within `param_tol`, BN running statistics and the float buffers of a
+    queue, bank or SeLA's state within `stat_tol` (abs); integer buffers
+    (a pointer, pseudo-labels, the best head) exactly."""
+    pairs = [(name, tstate.model if name == "model" else tstate.extra[name], sd)
+             for name, sd in _jax_state_dicts(jstate, algo).items()]
     assert {name for name, _, _ in pairs} == {"model", *tstate.extra}
     for name, module, want in pairs:
         got = module.state_dict()
         for k, w in want.items():
-            tol = stat_tol if k.endswith(("running_mean", "running_var")) else param_tol
-            np.testing.assert_allclose(got[k].detach().cpu().numpy(), w.numpy(), rtol=0,
-                                       atol=tol, err_msg=f"{name}.{k}")
+            g = got[k].detach().cpu()
+            if not w.is_floating_point():
+                np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=f"{name}.{k}")
+                continue
+            buffer = name in ("queue", "bank", "self_label")
+            tol = (stat_tol if buffer or k.endswith(("running_mean", "running_var"))
+                   else param_tol)
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=tol,
+                                       err_msg=f"{name}.{k}")
