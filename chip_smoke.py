@@ -36,6 +36,15 @@ Phase 9 trains SeLA ResNet-18 from configs/sela.yaml (batch 500, 10 heads of
 128 clusters, cut to 2 epochs) through the CLI, with its two self-labelling
 sweeps (`pre_train` and epoch 1), and checks that the pseudo-labels use more
 than one cluster.
+Phase 10 runs DINO on the ViT from configs/dino.yaml (hidden 384, 6 layers,
+batch 64 with 2+2 global 32x32 and 6+6 local 8x8 crops, adamw; cut to 2
+epochs) through the CLI, interrupted at epoch 2's start and resumed with
+`-l` as phase 4 does; checks that the teacher after the epoch-1 EMA is
+lambda * (the teacher before) + (1 - lambda) * (the student), that the
+center moved from its randn draw, and that the probe took the 1,024-wide
+student output. Phase 2 also times the kernel at DINO's batch of 64, and
+phase 6 holds a float32 DINO step (a small ViT, and a small ResNet with
+unfused views) on the card against the CPU.
 Every training phase checks the photometric launches per train step (two,
 one for SeLA's single augmented view), prints its steady img/s and its peak
 memory above what it inherited, and checks that what each run inherits stays
@@ -63,10 +72,11 @@ HELD_SLACK = 64 << 20   # bytes a run may inherit beyond what the first run did
 # photometric launches per train step on each path: two train views, or
 # SeLA's one augmented view
 LAUNCHES_PER_STEP = {"simclr": 2, "byol": 2, "simsiam": 2, "relic": 2, "barlow": 2,
-                     "moco": 2, "swav": 2, "sela": 1}
+                     "moco": 2, "swav": 2, "sela": 1, "dino": 2}
 # the batches the paths give the kernel: 512 (SimCLR, BYOL, SimSiam, ReLIC,
-# Barlow, SwAV), 256 (MoCo), 500 (SeLA); the first is the main path's
-TIMED_BATCHES = (512, 256, 500)
+# Barlow, SwAV), 256 (MoCo), 500 (SeLA), 64 (DINO, whose two base
+# transforms run before the multi-crop); the first is the main path's
+TIMED_BATCHES = (512, 256, 500, 64)
 
 
 def phase_env() -> str:
@@ -166,15 +176,17 @@ def _time_photometric(B: int, g, card: str) -> dict:
     ms_profiler = profiled_ms({"kernel": run}, {"kernel": "photometric_kernel<"})["kernel"]
     plain_ms = statistics.median(times_ms(lambda: photometric_reference(images, order, params)))
     bound_ms, bound_by, nbytes, ops = photometric_bound(images, params)
+    share = bound_ms / ms_profiler if ms_profiler else None
     print(f"[kernel] photometric bound B={B} 32x32: {nbytes:,} bytes, {ops:,.0f} float ops "
           f"-> {bound_ms * 1e3:.3f} us, bound by {bound_by}")
     print(f"[kernel] photometric B={B} 32x32: max |kernel - plain| = {err:.3e}; event median "
           f"warm {ms:.4f} ms, cold {ms_cold:.4f} ms ({len(warm)} calls each); profiler "
-          + (f"{ms_profiler * 1e3:.3f} us per launch" if ms_profiler else "saw no device time")
+          + (f"{ms_profiler * 1e3:.3f} us per launch, {share:.3f} of the bound"
+             if ms_profiler else "saw no device time")
           + f"; plain version {plain_ms:.4f} ms | {card}")
     return {"batch": B, "max_abs_err": err, "ms": ms, "ms_cold": ms_cold,
             "ms_profiler": ms_profiler, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": nbytes}
+            "bound_by": bound_by, "bytes": nbytes, "bound_share_profiler": share}
 
 
 # tiny float32 configs: a two-stage ResNet (128 features), 16x16, batch 8
@@ -192,17 +204,29 @@ SMALL_STEPS = {
              "loss_fn": {"temperature": 0.1, "sinkhorn_eps": 0.05, "sinkhorn_iters": 3}},
     "sela": {"num_clusters": 8, "num_cluster_heads": 3, "lambda": 25, "self_label_iters": 5},
 }
+# DINO at a tiny size: a 2-layer ViT of width 32 on 16x16 globals (16
+# patches) and 8x8 locals (4), or the small ResNet with unfused views
+_DINO_SMALL = {
+    "optimizer": {"name": "adamw", "lr": 1e-4, "epsilon": 1e-6, "weight_decay": 0.04},
+    "gradient_clip": 3.0, "proj_head": {"hidden_dim": 24, "proj_dim": 16},
+    "encoder": {"hidden_dim": 32, "embedding_dim": 16, "intermediate_dim": 48,
+                "num_attention_heads": 2, "patch_size": 4, "num_encoder_layers": 2,
+                "num_global_patches": 16, "num_local_patches": 4},
+    "data": {"multicrop_config": {"global_size": [16, 16], "local_size": [8, 8]}}}
+SMALL_STEPS.update({"dino": _DINO_SMALL, "dino-resnet": _DINO_SMALL})
+SMALL_ARCH = {"dino": "vit"}
 
 
 def phase_small_steps(names) -> None:
-    """One float32 step of each algorithm with a two-stage ResNet at 16x16,
-    batch 8, on the card and on the CPU from the same weights and views: the
-    CPU path is the one the tests hold against the JAX package. The views
-    are given, so no kernel launches here. Loss within 1e-5 relative (to 1
-    where the loss is nearer 0, as SimSiam's mean cosine is), every weight,
-    BN statistic and buffer (an EMA target or key tower, a queue or bank
-    and its pointer, SeLA's alpha, beta, pseudo-labels and best head) within
-    1e-4."""
+    """One float32 step of each algorithm with a two-stage ResNet (DINO's
+    `dino` case: a 2-layer ViT) at 16x16, batch 8 (DINO: 2+2 16x16 global
+    and 2+2 8x8 local crops of each), on the card and on the CPU from the
+    same weights and views: the CPU path is the one the tests hold against
+    the JAX package. The views are given, so no kernel launches here. Loss
+    within 1e-5 relative (to 1 where the loss is nearer 0, as SimSiam's mean
+    cosine is), every weight, BN statistic and buffer (an EMA target, key
+    tower or teacher, a queue or bank and its pointer, SeLA's alpha, beta,
+    pseudo-labels and best head, DINO's center) within 1e-4."""
     from ssv_tpu_torch.models import registry
     from ssv_tpu_torch.models.resnet import BasicBlock, ResNet
     from ssv_tpu_torch.train.base import DataInfo
@@ -214,6 +238,8 @@ def phase_small_steps(names) -> None:
     views = {k: torch.rand(8, 16, 16, 3, generator=g) for k in ("aug_1", "aug_2", "img")}
     views["aug"] = views["aug_1"]
     views["idx"] = torch.randperm(64, generator=g)[:8]
+    for k, size in (("global_1", 16), ("global_2", 16), ("local_1", 8), ("local_2", 8)):
+        views[k] = torch.rand(8, 2, size, size, 3, generator=g)
     resnet18 = registry.NETWORKS["resnet18"]
     registry.NETWORKS["resnet18"] = {
         "net": lambda **kw: ResNet(BasicBlock, (1, 1), **kw), "dim": 128}
@@ -228,7 +254,8 @@ def phase_small_steps(names) -> None:
                    **SMALL_STEPS[name]}
             results = {}
             for dev in ("cpu", "cuda"):
-                algo = build_algorithm(algo_name, cfg, "resnet18", DataInfo(10, 64, 8, 8), dev)
+                algo = build_algorithm(algo_name, cfg, SMALL_ARCH.get(name, "resnet18"),
+                                       DataInfo(10, 64, 8, 8), dev)
                 state = algo.init_state(torch.Generator().manual_seed(0))
                 if algo_name == "sela":
                     labels = state.extra["self_label"].pseudo_labels
@@ -407,11 +434,16 @@ class Interrupt(Exception):
     """Raised by a `pre_epoch` hook to stop a run after epoch 1."""
 
 
-def _interrupted_and_resumed(name: str, tmp: str, card: str, **overrides) -> dict:
+def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet18",
+                             target: str = "target", at_start=None, at_stop=None,
+                             **overrides) -> dict:
     """configs/<name>.yaml, cut to 2 epochs with an eval each, through the
     CLI: stopped at the start of epoch 2 by an exception that `train_safe`
     sees (after it saved `latest`), then resumed with `-l`. Checks that the
-    EMA target or key tower (`state.extra["target"]`) moved in epoch 1."""
+    EMA target, key tower or teacher (`state.extra[target]`) moved in epoch
+    1. `at_start(state)` runs at epoch 1's start, `at_stop(state, trainer,
+    target as it was at epoch 1's start)` at the stop; what they return
+    comes back under those names."""
     from ssv_tpu_torch import main as cli
     from ssv_tpu_torch.ops.photometric import fused_photometric
 
@@ -419,19 +451,25 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, **overrides) -> dic
 
     def stop_after_epoch_1(pre_epoch):
         def hook(state, trainer, epoch):
-            target = list(state.extra["target"].parameters())
+            params = list(state.extra[target].parameters())
             if epoch == 1:
-                first["target"] = [p.detach().clone() for p in target]
+                first["target"] = [p.detach().clone() for p in params]
+                if at_start is not None:
+                    first["at_start"] = at_start(state)
                 return pre_epoch(state, trainer, epoch)
             first["stats"] = list(trainer.epoch_stats)
+            before = first.pop("target")
             first["target_moved"] = max((p - q).abs().max().item()
-                                        for p, q in zip(target, first.pop("target")))
+                                        for p, q in zip(params, before))
+            if at_stop is not None:
+                first["at_stop"] = at_stop(state, trainer, before)
+            del before
             raise Interrupt
         return hook
 
     run = os.path.join(tmp, "run")
     argv = ["-c", _config(tmp, name, epochs=2, eval_every=1, **overrides),
-            "-m", "resnet18", "-a", name]
+            "-m", arch, "-a", name]
     held = [_held_before_run(f"{name} epoch 1")]
     fused_photometric.launches = 0
     with _Hooks(pre_epoch=stop_after_epoch_1):
@@ -459,7 +497,7 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, **overrides) -> dic
     if [e["epoch"] for e in stats] != [1, 2] or steps != sum(e["steps"] for e in stats):
         raise AssertionError(f"{name}: epochs {[e['epoch'] for e in stats]}, {steps} steps")
     losses = _check_losses(name, stats)
-    print(f"[{name}] resnet18 batch {resumed.pipeline.batch_size}: epoch 1 interrupted at "
+    print(f"[{name}] {arch} batch {resumed.pipeline.batch_size}: epoch 1 interrupted at "
           f"epoch 2's start, `latest` and `best_model` saved, the target moved by up to "
           f"{first['target_moved']:.3e}; resumed at epoch {resumed.epoch_stats[0]['epoch']}; "
           f"{steps} steps in all, loss first {losses[0]:.4f} last {losses[-1]:.4f}, "
@@ -468,11 +506,12 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, **overrides) -> dic
           f"{stats[1]['steady_img_per_s']:.1f} img/s (epoch 2); peak memory of each run "
           f"above what was held before it {_gib(first_peak)} (epoch 1 and its KNN eval) "
           f"and {_gib(peak)} (resume, epoch 2, KNN, the probe); {launches} photometric "
-          f"launches for {steps} steps | {card}")
+          f"launches for {steps} steps ({launches / steps:g} a step) | {card}")
     probe = _check_probe(f"{name} train", resumed, card)
     return {"launches": launches, "steps": steps, "peak_bytes": [first_peak, peak],
             "held_bytes": held, "img_per_s": [e["steady_img_per_s"] for e in stats],
-            "linear_eval": probe, "argv": argv, "run": run, "resumed": resumed}
+            "linear_eval": probe, "argv": argv, "run": run, "resumed": resumed,
+            "at_start": first.get("at_start"), "at_stop": first.get("at_stop")}
 
 
 def phase_byol(card: str) -> dict:
@@ -690,7 +729,64 @@ def phase_sela(card: str) -> dict:
             "best_head": best_head, "linear_eval": probe}
 
 
+def phase_dino(card: str) -> dict:
+    """DINO on the ViT from configs/dino.yaml at its widths (hidden 384, 6
+    layers, 6 heads, head 512 -> 1,024; batch 64, 2+2 global 32x32 and 6+6
+    local 8x8 crops; adamw with the clamp and the decay ramp), cut to 2
+    epochs, interrupted and resumed through the CLI. At the stop, the
+    teacher after epoch 1's EMA is lambda * (the teacher at epoch 1's start,
+    which no step moves) + (1 - lambda) * (the student), lambda =
+    cosine_ramp(1, epochs, 0.996, 1.0), to 1e-6; after the resume the
+    center is not its randn draw, and the student's output, which the probe
+    took, is 1,024 wide."""
+    import numpy as np
+
+    from ssv_tpu_torch.utils.schedules import cosine_ramp
+
+    def center(state):
+        return state.extra["center"].value.detach().clone()
+
+    def ema_error(state, trainer, before):
+        algo = trainer.algorithm
+        lbd = cosine_ramp(1, algo.epochs, algo.lambda_lower, algo.lambda_upper)
+        keep = float(np.float32(1) - np.float32(lbd))
+        teacher = list(state.extra["teacher"].parameters())
+        student = list(state.model.parameters())
+        with torch.no_grad():
+            err = max((t - (b * lbd + s * keep)).abs().max().item()
+                      for t, b, s in zip(teacher, before, student))
+            gap = math.sqrt(sum(float(((t - s) ** 2).sum()) for t, s in zip(teacher, student)))
+            gap0 = math.sqrt(sum(float(((b - s) ** 2).sum()) for b, s in zip(before, student)))
+        return {"lambda": lbd, "max_abs_err": err, "gap_ratio": gap / gap0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _interrupted_and_resumed("dino", tmp, card, arch="vit", target="teacher",
+                                       at_start=center, at_stop=ema_error)
+        resumed = out.pop("resumed")
+        del out["argv"], out["run"]
+        c0 = out.pop("at_start")
+        moved = (resumed.state.extra["center"].value - c0).abs().max().item()
+        images, _ = resumed.pipeline.arrays("test")
+        width = resumed.algorithm.embed(resumed.state,
+                                        resumed._eval_t(None, images[:8])).shape[1]
+        spe = resumed.pipeline.steps_per_epoch
+        del resumed, images
+    ema = out["at_stop"]
+    print(f"[dino] teacher after epoch 1's EMA at lambda {ema['lambda']:.6f}: max |teacher - "
+          f"(lambda teacher_0 + (1 - lambda) student)| = {ema['max_abs_err']:.3e}; "
+          f"|teacher - student| / |teacher_0 - student| = {ema['gap_ratio']:.6f}; the center "
+          f"moved by up to {moved:.3e} from its randn draw; the probe's input "
+          f"{width} wide; {spe} steps an epoch")
+    if not (ema["max_abs_err"] <= 1e-6 and abs(ema["gap_ratio"] - ema["lambda"]) <= 1e-4):
+        raise AssertionError(f"dino: the teacher's EMA disagrees with lambda: {ema}")
+    if not moved > 0 or width != 1024:
+        raise AssertionError(f"dino: center moved {moved}, features {width} wide")
+    out.update(center_moved=moved, ema=ema)
+    return out
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     card = phase_env()
     phase_build()
     kernels = phase_kernels(card)
@@ -699,12 +795,14 @@ def main() -> None:
              "byol": phase_byol(card)["launches"]}
     paths.update({k: v["launches"] for k, v in phase_family(card).items()})
     phase_small_steps(["byol", "simsiam", "simsiam-frozen", "relic", "barlow",
-                       "moco", "swav", "sela"])
+                       "moco", "swav", "sela", "dino", "dino-resnet"])
     phase_probe_steps()
     paths["moco"] = phase_moco(card)["launches"]
     paths["swav"] = phase_swav(card)["launches"]
     paths["sela"] = phase_sela(card)["launches"]
+    paths["dino"] = phase_dino(card)["launches"]
     _held_before_run("the end")
+    print(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s | {card}")
     kernels[0]["launches"] = sum(paths.values())
     kernels[0]["launches_by_path"] = paths
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """Convert the JAX package's flax variables into the port's `state_dict`.
 
 Takes `params` and `batch_stats` as nested dicts of numpy arrays (the
-caller turns JAX arrays into numpy) for a `Tower(encoder=ResNet, proj=MLPHead,
-pred=MLPHead)` or a bare `ResNet`, and returns a dict of torch tensors keyed
-by the port's module names:
+caller turns JAX arrays into numpy) for a `Tower(encoder=ResNet or
+TransformerEncoder, proj=MLPHead or DinoHead, pred=MLPHead)` or a bare
+`ResNet`, and returns a dict of torch tensors keyed by the port's module
+names:
 
   * Conv kernels go from HWIO to OIHW; Dense kernels are transposed;
   * BN `scale`/`bias`/`mean`/`var` -> `weight`/`bias`/`running_mean`/`running_var`;
@@ -12,7 +13,14 @@ by the port's module names:
     blocks across stages); in a block `Conv_0`, `Conv_1`, `Conv_2` ->
     `conv1`, `conv2`, `downsample.0` and `BatchNorm_<n>` likewise;
     `Dense_<i>` -> `fc.<i>`, and the head's n-th BatchNorm -> `bn.<i>` of
-    the n-th layer in that head's `bn_after`.
+    the n-th layer in that head's `bn_after`;
+  * the ViT: `cls_embedding` and both position tables as they are,
+    `projection_fc` (its kernel's rows (c, py, px) then position) ->
+    the Linear `projection_fc`, `layer_<i>` -> `layers.<i>` with
+    `attention/{ln,query,key,value}` and `feedfwd/{ln,Dense_0,Dense_1}`
+    (LayerNorm `scale` -> `weight`; Dense_<i> -> `fc.<i>`);
+  * the `DinoHead`: `MLPHead_0/Dense_<i>` -> `mlp.fc.<i>`, `fc_out/{v,g,bias}`
+    -> `fc_out.{v (transposed), g, bias}`.
 
 `model_state_dict` takes any algorithm's model: a Tower; SwAV's
 `{"model": Tower, "prototypes": {"table"}}` -> `tower.*` and
@@ -23,9 +31,11 @@ by the port's module names:
 `extra_state_dicts` maps the rest of a JAX `TrainState.extra` to the
 port's `state.extra` modules: an EMA target (`target_params` /
 `target_batch_stats`) or MoCo's key tower (`key_params` / `key_batch_stats`)
--> `target`; a `RingBuffer` (MoCo's `queue`, SwAV's `bank`) -> `data` and
-`ptr` of the module of the same name; SeLA's `alpha`, `beta`,
-`pseudo_labels` and `best_head` -> the buffers of `self_label`.
+-> `target`; DINO's teacher (`teacher_params` / `teacher_batch_stats`) ->
+`teacher` and its `center` -> `value` of `center`; a `RingBuffer` (MoCo's
+`queue`, SwAV's `bank`) -> `data` and `ptr` of the module of the same
+name; SeLA's `alpha`, `beta`, `pseudo_labels` and `best_head` -> the
+buffers of `self_label`.
 """
 
 from __future__ import annotations
@@ -52,6 +62,17 @@ def _bn(out: dict, prefix: str, params: dict, stats: dict):
 
 def _conv(out: dict, prefix: str, params: dict):
     out[f"{prefix}.weight"] = _t(params["kernel"]).permute(3, 2, 0, 1).contiguous()
+
+
+def _dense(out: dict, prefix: str, params: dict):
+    out[f"{prefix}.weight"] = _t(params["kernel"]).T.contiguous()
+    if "bias" in params:
+        out[f"{prefix}.bias"] = _t(params["bias"])
+
+
+def _layer_norm(out: dict, prefix: str, params: dict):
+    out[f"{prefix}.weight"] = _t(params["scale"])
+    out[f"{prefix}.bias"] = _t(params["bias"])
 
 
 def resnet_state_dict(params: dict, batch_stats: dict, stage_sizes: Sequence[int],
@@ -86,8 +107,7 @@ def mlp_state_dict(params: dict, batch_stats: dict, bn_after: Sequence[int],
     for name, sub in params.items():
         kind, idx = name.rsplit("_", 1)
         if kind == "Dense":
-            out[f"{prefix}fc.{idx}.weight"] = _t(sub["kernel"]).T.contiguous()
-            out[f"{prefix}fc.{idx}.bias"] = _t(sub["bias"])
+            _dense(out, f"{prefix}fc.{idx}", sub)
         elif kind == "BatchNorm":
             _bn(out, f"{prefix}bn.{bn_after[int(idx)]}", sub, batch_stats[name])
         else:
@@ -95,20 +115,67 @@ def mlp_state_dict(params: dict, batch_stats: dict, bn_after: Sequence[int],
     return out
 
 
+_VIT_DENSE = {"query": "query", "key": "key", "value": "value",
+              "Dense_0": "fc.0", "Dense_1": "fc.1"}
+
+
+def vit_state_dict(params: dict, prefix: str = "") -> dict:
+    """flax TransformerEncoder params -> port TransformerEncoder state_dict
+    entries."""
+    out: dict = {}
+    for name, sub in params.items():
+        if name in ("cls_embedding", "pos_embedding_global", "pos_embedding_local"):
+            out[f"{prefix}{name}"] = _t(sub)
+        elif name == "projection_fc":
+            _dense(out, f"{prefix}projection_fc", sub)
+        elif name.startswith("layer_"):
+            base = f"{prefix}layers.{name.split('_')[1]}."
+            for part, layer in sub.items():             # attention, feedfwd
+                for inner, p in layer.items():
+                    if inner == "ln":
+                        _layer_norm(out, f"{base}{part}.ln", p)
+                    elif inner in _VIT_DENSE:
+                        _dense(out, f"{base}{part}.{_VIT_DENSE[inner]}", p)
+                    else:
+                        raise KeyError(f"unexpected flax ViT variable {name}/{part}/{inner}")
+        else:
+            raise KeyError(f"unexpected flax ViT variable {name}")
+    return out
+
+
+def dino_head_state_dict(params: dict, prefix: str = "") -> dict:
+    """flax DinoHead params -> port DinoHead state_dict entries."""
+    if set(params) != {"MLPHead_0", "fc_out"}:
+        raise KeyError(f"unexpected flax DinoHead variables {sorted(params)}")
+    out = mlp_state_dict(params["MLPHead_0"], {}, (), prefix=f"{prefix}mlp.")
+    fc = params["fc_out"]
+    out[f"{prefix}fc_out.v"] = _t(fc["v"]).T.contiguous()
+    out[f"{prefix}fc_out.g"] = _t(fc["g"])
+    out[f"{prefix}fc_out.bias"] = _t(fc["bias"])
+    return out
+
+
 def tower_state_dict(params: dict, batch_stats: dict, stage_sizes: Sequence[int],
                      bn_after: dict[str, Sequence[int]]) -> dict:
     """flax Tower(encoder, proj, pred) variables -> port Tower state_dict;
-    `bn_after` gives each head of the tower (`proj`, `pred`) its layers
-    followed by BatchNorm."""
-    out = resnet_state_dict(params["encoder"], batch_stats["encoder"],
-                            stage_sizes, prefix="encoder.")
+    the encoder a ResNet or a ViT (by its variables); `bn_after` gives each
+    head of the tower (`proj`, `pred`) its layers followed by BatchNorm (a
+    DinoHead has none)."""
+    if "cls_embedding" in params["encoder"]:
+        out = vit_state_dict(params["encoder"], prefix="encoder.")
+    else:
+        out = resnet_state_dict(params["encoder"], batch_stats["encoder"],
+                                stage_sizes, prefix="encoder.")
     heads = set(params) - {"encoder"}
     if heads != set(bn_after):
         raise KeyError(f"flax tower heads {sorted(heads)}, bn_after given for "
                        f"{sorted(bn_after)}")
     for head, layers in bn_after.items():
-        out.update(mlp_state_dict(params[head], batch_stats.get(head, {}), layers,
-                                  prefix=f"{head}."))
+        if "fc_out" in params[head]:
+            out.update(dino_head_state_dict(params[head], prefix=f"{head}."))
+        else:
+            out.update(mlp_state_dict(params[head], batch_stats.get(head, {}), layers,
+                                      prefix=f"{head}."))
     return out
 
 
@@ -135,12 +202,15 @@ def extra_state_dicts(extra: dict, stage_sizes: Sequence[int],
     an empty `extra` -> {}. `bn_after` describes the target tower's heads."""
     out: dict = {}
     done = set()
-    for prefix in ("target", "key"):
+    for prefix, name in (("target", "target"), ("key", "target"), ("teacher", "teacher")):
         if f"{prefix}_params" in extra:
-            out["target"] = tower_state_dict(extra[f"{prefix}_params"],
-                                             extra[f"{prefix}_batch_stats"],
-                                             stage_sizes, bn_after)
+            out[name] = tower_state_dict(extra[f"{prefix}_params"],
+                                         extra[f"{prefix}_batch_stats"],
+                                         stage_sizes, bn_after)
             done |= {f"{prefix}_params", f"{prefix}_batch_stats"}
+    if "center" in extra:
+        out["center"] = {"value": _t(extra["center"])}
+        done.add("center")
     for name in ("queue", "bank"):
         if name in extra:
             data, ptr = extra[name]                 # a RingBuffer (data, ptr)

@@ -102,11 +102,28 @@ def random_flip(generator, img, p=0.5):
 # geometric ops
 # --------------------------------------------------------------------------
 
-def _weight_mat(in_size: int, out_size: int, scale, translation):
-    """(B, out, in) linear-interpolation weights with antialiasing, the
-    formula of jax.image.scale_and_translate's compute_weight_mat:
-    sample positions, triangle kernel widened by 1/scale when downsampling,
-    renormalised columns, and zero weight for samples outside the input."""
+def _triangle(x):
+    return torch.clamp(1.0 - torch.abs(x), min=0.0)
+
+
+def _keys_cubic(x):
+    """Keys' cubic convolution kernel with a = -0.5 at |x| (x >= 0), as
+    jax.image.scale_and_translate's `cubic` fills it; its weights go
+    negative on 1 <= x < 2 and are not clamped."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+INTERPOLATION = {"linear": _triangle, "cubic": _keys_cubic}
+
+
+def _weight_mat(in_size: int, out_size: int, scale, translation, method: str = "linear"):
+    """(B, out, in) interpolation weights with antialiasing, the formula of
+    jax.image.scale_and_translate's compute_weight_mat: sample positions,
+    the kernel (`linear`: triangle, `cubic`: Keys) widened by 1/scale when
+    downsampling, renormalised columns, and zero weight for samples outside
+    the input."""
     dev = scale.device
     inv_scale = (1.0 / scale)[:, None, None]                     # (B, 1, 1)
     kernel_scale = torch.clamp(inv_scale, min=1.0)
@@ -115,7 +132,7 @@ def _weight_mat(in_size: int, out_size: int, scale, translation):
                 - translation[:, None, None] * inv_scale - 0.5)  # (B, 1, out)
     in_pos = torch.arange(in_size, dtype=torch.float32, device=dev)[None, :, None]
     x = torch.abs(sample_f - in_pos) / kernel_scale              # (B, in, out)
-    weights = torch.clamp(1.0 - torch.abs(x), min=0.0)
+    weights = INTERPOLATION[method](x)
     total = weights.sum(dim=1, keepdim=True)
     eps = 1000.0 * torch.finfo(torch.float32).eps
     weights = torch.where(torch.abs(total) > eps,
@@ -126,15 +143,19 @@ def _weight_mat(in_size: int, out_size: int, scale, translation):
     return weights.transpose(1, 2)                               # (B, out, in)
 
 
-def crop_resize(img, box_ijhw, out_size):
+def crop_resize(img, box_ijhw, out_size, method: str = "linear"):
     """Resample each image's box (i, j, h, w), given per image as (B,)
-    tensors, to `out_size` = (H, W) with antialiased linear interpolation:
-    one (out, in) weight matrix per image and axis, two batched matmuls."""
+    tensors, to `out_size` = (H, W) with antialiased `linear` or `cubic`
+    interpolation: one (out, in) weight matrix per image and axis, two
+    batched matmuls."""
+    if method not in INTERPOLATION:
+        raise ValueError(f"crop_resize: method must be one of {list(INTERPOLATION)}, "
+                         f"got {method!r}")
     i, j, h, w = (b.to(torch.float32) for b in box_ijhw)
     out_h, out_w = out_size
     _, H, W, _ = img.shape
-    rows = _weight_mat(H, out_h, out_h / h, -i * out_h / h)      # (B, out_h, H)
-    cols = _weight_mat(W, out_w, out_w / w, -j * out_w / w)      # (B, out_w, W)
+    rows = _weight_mat(H, out_h, out_h / h, -i * out_h / h, method)   # (B, out_h, H)
+    cols = _weight_mat(W, out_w, out_w / w, -j * out_w / w, method)   # (B, out_w, W)
     y = torch.einsum("boh,bhwc->bowc", rows, img)
     return torch.einsum("bpw,bowc->bopc", cols, y)
 
@@ -182,7 +203,9 @@ def sample_rrc_box(in_size, scale, u_area, u_ratio, u_i, u_j,
 
 
 def random_resized_crop(generator, img, size, scale=(0.08, 1.0),
-                        ratio=(3.0 / 4.0, 4.0 / 3.0)):
+                        ratio=(3.0 / 4.0, 4.0 / 3.0), method: str = "linear"):
+    """One box per image from `sample_rrc_box`, its uniforms drawn from
+    `generator` (u_area, u_ratio, then the offsets), resampled to `size`."""
     size = (size, size) if isinstance(size, int) else tuple(size)
     B, dev = img.shape[0], img.device
     u_area = torch.rand(B, 10, generator=generator, device=dev)
@@ -190,7 +213,7 @@ def random_resized_crop(generator, img, size, scale=(0.08, 1.0),
     u_ij = torch.rand(B, 2, generator=generator, device=dev)
     box = sample_rrc_box(img.shape[1:3], tuple(scale), u_area, u_ratio,
                          u_ij[:, 0], u_ij[:, 1], tuple(ratio))
-    return crop_resize(img, box, size)
+    return crop_resize(img, box, size, method)
 
 
 def center_crop(img, size):

@@ -8,7 +8,8 @@
   * epoch shuffling is `torch.randperm` on the device.
 
 Batch dicts keep the JAX package's keys: `double` ->
-{index, img, aug_1, aug_2, label}; `pseudolabel` -> {idx, img, aug, label}.
+{index, img, aug_1, aug_2, label}; `pseudolabel` -> {idx, img, aug, label};
+`multicrop` -> {img, label, global_1, global_2, local_1, local_2}.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from .augment import build_batch_transform, build_transform
 from .datasets import Dataset, load_dataset
+from .multicrop import MultiCrop
 
 
 class DataPipeline:
@@ -32,6 +34,7 @@ class DataPipeline:
             synthetic_sizes=synthetic_sizes)
         self.num_classes = self.dataset.num_classes
         self.transforms_cfg = cfg.get("transforms")
+        self.multicrop_cfg = cfg.get("multicrop_config")
 
         def put(a, dtype=None):
             t = torch.from_numpy(a)
@@ -102,14 +105,26 @@ class DataPipeline:
             return fn
 
         if kind == "multicrop":
-            raise NotImplementedError(
-                f"batch kind {kind!r} is not yet ported to ssv_tpu_torch "
-                f"(ROADMAP slice B)")
+            mc = MultiCrop(self.multicrop_cfg)
+            test_t = build_transform(self.multicrop_cfg["test_transforms"])
+
+            def fn(images, labels, idx, generator):
+                raw = images[idx]
+                return {
+                    "img": test_t(generator, raw),
+                    "label": labels[idx],
+                    **mc.batch_call(generator, raw),
+                }
+            return fn
+
         raise ValueError(f"Unknown batch kind {kind!r}")
 
     def make_eval_transform(self) -> Callable:
         """The deterministic test-time transform (center crop + normalize):
-        the config's `test` transform, or `std` where it has no `test`."""
+        the config's `test` transform, or `std` where it has no `test`, or
+        the multicrop config's `test_transforms` where it has no `transforms`."""
+        if self.transforms_cfg is None:
+            return build_transform(self.multicrop_cfg["test_transforms"])
         t = dict(self.transforms_cfg)
         return build_transform(t.get("test", t.get("std")))
 

@@ -1,11 +1,13 @@
 """Projection heads and prototype tables (port of ssv_tpu/models/heads.py:
 the MLP heads of SimCLR, BYOL and ReLIC, SimSiam, Barlow Twins and SwAV,
-MoCo's linear head, SwAV's prototypes and SeLA's cluster heads).
+MoCo's linear head, DINO's weight-normed head, SwAV's prototypes and SeLA's
+cluster heads).
 
 The head's Linear layers run in the caller's autocast dtype (bf16 on the
 card) with f32 params; each BatchNorm takes and returns float32, and the
-head's output is float32, as in the flax head. `Prototypes` and
-`ClusterHeads` are float32 throughout, as their flax modules are.
+head's output is float32, as in the flax head. `Prototypes`,
+`ClusterHeads` and `WeightNormDense` (with the L2 normalisation before it
+in `DinoHead`) are float32 throughout, as their flax modules are.
 """
 
 from __future__ import annotations
@@ -31,6 +33,13 @@ def _lecun_trunc_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generato
 ACTS = {"relu": F.relu, "gelu": F.gelu}   # flax's gelu is the exact one here
 
 
+def _dense(fc: nn.Linear, x):
+    """fc(x) as flax's Dense computes it: the product rounded to its dtype
+    (the autocast dtype under autocast), then the bias added in that dtype."""
+    y = F.linear(x, fc.weight)
+    return y + fc.bias.to(y.dtype)
+
+
 class MLPHead(nn.Module):
     """MLP head driven by a layer spec: `widths` of the Linear layers,
     `bn_after` the (0-indexed) layers followed by BatchNorm, `act` ("relu" or
@@ -50,7 +59,7 @@ class MLPHead(nn.Module):
 
     def forward(self, x):
         for i, fc in enumerate(self.fc):
-            x = fc(x)
+            x = _dense(fc, x)
             if str(i) in self.bn:
                 x = self.bn[str(i)](x.float())
             if i < len(self.fc) - 1:
@@ -111,6 +120,48 @@ class LinearHead(MLPHead):
 
     def forward(self, x):
         return super().forward(F.relu(x))
+
+
+class WeightNormDense(nn.Module):
+    """A Linear layer with weight normalisation (torch's `weight_norm`,
+    dim=0): row j of the weight is g[j] * v[j] / max(||v[j]||, 1e-12), `g`
+    starting at ||v[j]||; float32 with autocast off. `v` is stored (out, in),
+    as a Linear weight."""
+
+    def __init__(self, in_dim: int, features: int):
+        super().__init__()
+        self.v = nn.Parameter(torch.empty(features, in_dim))
+        self.g = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features))
+
+    def forward(self, x):
+        with torch.autocast(x.device.type, enabled=False):
+            norm = torch.clamp(torch.linalg.vector_norm(self.v, dim=1), min=1e-12)
+            return F.linear(x.float(), self.v * (self.g / norm)[:, None], self.bias)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        _lecun_trunc_normal_(self.v, self.v.shape[1], generator)
+        self.g.copy_(torch.linalg.vector_norm(self.v, dim=1))
+        nn.init.zeros_(self.bias)
+
+
+class DinoHead(nn.Module):
+    """Three GELU Linear layers of `hidden_dim` (no BN; the caller's autocast
+    dtype, float32 out), L2 normalisation, then the weight-normed output
+    layer `fc_out` to `proj_dim`, both in float32."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, proj_dim: int):
+        super().__init__()
+        self.mlp = MLPHead(in_dim, (hidden_dim, hidden_dim, hidden_dim), act="gelu")
+        self.fc_out = WeightNormDense(hidden_dim, proj_dim)
+
+    def forward(self, x):
+        return self.fc_out(l2_normalize(self.mlp(x)))
+
+    def init_weights(self, generator: torch.Generator):
+        self.mlp.init_weights(generator)
+        self.fc_out.init_weights(generator)
 
 
 class Prototypes(nn.Module):

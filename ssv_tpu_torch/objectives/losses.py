@@ -1,6 +1,7 @@
 """SSL objectives (port of ssv_tpu/objectives/losses.py: NT-Xent, MoCo's
 InfoNCE, BYOL, SimSiam, Barlow Twins, ReLIC, SwAV's Sinkhorn codes and
-swapped prediction, and SeLA's self-labelling).
+swapped prediction, SeLA's self-labelling, and DINO's centred
+cross-entropy).
 
 Losses take and compute in float32; call them outside any autocast region.
 """
@@ -154,3 +155,20 @@ def sela_self_label(logits, alpha, beta, lmbda: float = 25.0, n_iters: int = 80)
         beta = 1.0 / (alpha.T @ p).T
     scaled = (alpha * p * beta.T).T                          # (B, K)
     return scaled.argmax(dim=-1), alpha, beta
+
+
+def dino_loss(teacher_views, student_views, temp_s: float, temp_t: float, center):
+    """DINO's loss (reference losses.py:75-89). `teacher_views` (B, Vg, K)
+    are the teacher's global-view outputs, `student_views` (B, Vg + Vl, K)
+    all the student's. Over each teacher view t, the cross-entropy of
+    softmax((t - center) / temp_t) against log_softmax(student / temp_s),
+    averaged over the batch and over *all* student views, including the
+    student's view of the same crop, as the reference does; the teacher
+    side carries no gradient."""
+    teacher_views = teacher_views.detach()
+    logp_s = torch.log_softmax(student_views / temp_s, dim=-1)       # (B, V, K)
+    total = 0.0
+    for t in range(teacher_views.shape[1]):
+        probs_t = torch.softmax((teacher_views[:, t, :] - center) / temp_t, dim=-1)
+        total = total - (probs_t[:, None, :] * logp_s).sum(dim=-1).mean()
+    return total

@@ -1,0 +1,158 @@
+"""Where a train step's time goes, on one CUDA card:
+
+    python -m ssv_tpu_torch.tools.step_profile -c configs/dino.yaml -m vit -a dino
+
+Builds the algorithm's `Trainer` on the config (the full-size synthetic
+CIFAR-10 where no CIFAR is on disk), runs `--warmup` train steps, then
+times `--steps` steps, and as many batches alone, by the host clock (each
+run ends in a synchronise), then profiles `--profiled` steps: the device
+ops a step (kernels, copies and sets; not the profiler's annotations), the
+union of their intervals (the device's busy time a step) and its share of
+the unprofiled step, their device time by kind, and the kernels that take
+the most of it.
+Prints a line for each and, last, one JSON object. Needs one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import tempfile
+import time
+
+import torch
+
+from .measure import card_line
+
+
+def busy_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+# ranges the profiler mirrors on the card's timeline around the kernels of
+# an optimizer step or a profiler step; not device work of their own
+ANNOTATIONS = ("Optimizer.step#", "Optimizer.zero_grad#", "ProfilerStep#")
+
+
+# kinds of device work, by the first pattern a kernel's name contains
+KINDS = (("photometric kernel", ("photometric_kernel",)),
+         ("matmul and conv", ("gemm", "xmma", "nvjet", "cutlass", "conv", "sm90_", "sm80_")),
+         ("normalisation", ("layer_norm", "GammaBeta", "batch_norm")),
+         ("copies and casts", ("copy", "Memcpy", "Memset")),
+         ("optimizer (foreach)", ("multi_tensor_apply",)),
+         ("softmax", ("softmax",)),
+         ("pooling", ("pool",)))
+
+
+def kind_of(name: str) -> str:
+    for kind, patterns in KINDS:
+        if any(p in name for p in patterns):
+            return kind
+    return "elementwise and other"
+
+
+def device_ops(events) -> list:
+    """The profiler's events that ran on the card, without the annotations
+    it mirrors there (user ranges, `Optimizer.step#...`)."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(ANNOTATIONS)]
+
+
+def profile_steps(config: str, arch: str, algo: str, warmup: int = 10, steps: int = 30,
+                  profiled: int = 5, top: int = 15) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..train.trainer import Trainer
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("step_profile measures on a CUDA card; none found")
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer({"config": config, "algo": algo, "arch": arch, "task": "train",
+                           "output": os.path.join(tmp, "run")})
+        idx = trainer.pipeline.epoch_indices(trainer.generator)
+        need = warmup + 2 * steps + profiled
+        if idx.shape[0] < need:
+            raise ValueError(f"an epoch has {idx.shape[0]} steps, {need} are needed")
+        images, labels = trainer.pipeline.arrays("train")
+        state = trainer.state
+
+        def batch(s):
+            return trainer._batch_fn(images, labels, idx[s], trainer.generator)
+
+        def step(s):
+            nonlocal state
+            state, _ = trainer.algorithm.train_step(state, batch(s), trainer.generator)
+
+        def host_ms(fn, first):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for s in range(first, first + steps):
+                fn(s)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / steps * 1e3
+
+        for s in range(warmup):
+            step(s)
+        step_ms = host_ms(step, warmup)
+        batch_ms = host_ms(batch, warmup + steps)
+        first = warmup + 2 * steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for s in range(first, first + profiled):
+                step(s)
+            torch.cuda.synchronize()
+        ops = device_ops(prof.events())
+        batch_size = trainer.pipeline.batch_size
+        del trainer, state
+    by_name: dict[str, float] = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    by_kind: dict[str, float] = {}
+    for name, us in by_name.items():
+        by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + us / profiled / 1e3
+    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in ops) / profiled / 1e3
+    result = {
+        "algo": algo, "arch": arch, "batch": batch_size, "step_ms": step_ms,
+        "img_per_s": batch_size / step_ms * 1e3, "batch_ms": batch_ms,
+        "device_ops_per_step": len(ops) / profiled, "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / step_ms,
+        "ms_per_step_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        "top_us_per_step": {n: us / profiled for n, us in
+                            sorted(by_name.items(), key=lambda kv: -kv[1])[:top]},
+        "card": card}
+    print(f"[step_profile] {algo} {arch} batch {batch_size}: {step_ms:.3f} ms a step by the "
+          f"host clock over {steps} steps ({result['img_per_s']:.1f} img/s), the batch alone "
+          f"{batch_ms:.3f} ms; under the profiler {result['device_ops_per_step']:.1f} device "
+          f"ops a step, the device busy {busy_ms:.3f} ms a step, "
+          f"{result['device_busy_share']:.3f} of the unprofiled step | {card}")
+    print("[step_profile] device ms a step by kind: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in result["ms_per_step_by_kind"].items()))
+    for name, us in result["top_us_per_step"].items():
+        print(f"[step_profile]   {us:9.1f} us a step  {name[:120]}")
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m ssv_tpu_torch.tools.step_profile")
+    ap.add_argument("-c", "--config", required=True)
+    ap.add_argument("-m", "--arch", required=True)
+    ap.add_argument("-a", "--algo", required=True)
+    ap.add_argument("--warmup", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--profiled", type=int, default=5)
+    args = ap.parse_args(argv)
+    print(json.dumps(profile_steps(args.config, args.arch, args.algo, args.warmup,
+                                   args.steps, args.profiled)))
+
+
+if __name__ == "__main__":
+    main()

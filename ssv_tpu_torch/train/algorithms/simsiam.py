@@ -78,3 +78,10 @@ class SimSiam(Algorithm):
         state.model.eval()
         with self.autocast():
             return state.model(images).float()
+
+    @torch.no_grad()
+    def embed_backbone(self, state: TrainState, images):
+        """The online encoder's features, before the projector."""
+        state.model.eval()
+        with self.autocast():
+            return state.model.encoder(images).float()

@@ -77,6 +77,12 @@ class Algorithm:
         reference's build_features."""
         raise NotImplementedError
 
+    def embed_backbone(self, state: TrainState, images):
+        """Raw encoder features (before any head), or None where the
+        algorithm has no separate backbone: tells representation collapse
+        (backbone dead) from head collapse."""
+        return None
+
     # -- optional hooks ------------------------------------------------
     def post_epoch(self, state: TrainState, epoch: int) -> TrainState:
         return state
@@ -105,17 +111,27 @@ class Algorithm:
                            epochs=self.epochs,
                            steps_per_epoch=self.data.steps_per_epoch)
 
-    def make_optimizer(self, model: torch.nn.Module):
+    def make_optimizer(self, model: torch.nn.Module, weight_decay_fn=None, grad_clip=None):
         from .optim import get_optimizer
         return get_optimizer(dict(self.config["optimizer"]), model.parameters(),
-                             self.lr_fn())
+                             self.lr_fn(), weight_decay_fn=weight_decay_fn,
+                             grad_clip=grad_clip)
 
-    def grad_step(self, state: TrainState, loss: torch.Tensor) -> TrainState:
+    def grad_step(self, state: TrainState, loss: torch.Tensor,
+                  update_mask=None) -> TrainState:
         """Backward of `loss`, one optimizer step at lr(state.step), then the
-        schedule advances to the next step."""
+        schedule advances to the next step. The parameters in `update_mask`
+        keep their values through the step: their optimizer *update* is
+        zeroed, so decoupled weight decay does not move them either, while
+        the optimizer's moments take their gradients as usual (the JAX
+        package's `update_mask`)."""
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        frozen = [p.detach().clone() for p in update_mask or ()]
         state.optimizer.step()
+        if frozen:
+            with torch.no_grad():
+                torch._foreach_copy_(list(update_mask), frozen)
         state.scheduler.step()
         state.step += 1
         return state

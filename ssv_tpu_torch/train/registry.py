@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from .algorithms.barlow import BarlowTwins
 from .algorithms.byol import BYOL
+from .algorithms.dino import DINO
 from .algorithms.moco import MoCo
 from .algorithms.relic import ReLIC
 from .algorithms.sela import SeLA
@@ -12,10 +13,11 @@ from .algorithms.simsiam import SimSiam
 from .algorithms.swav import SwAV
 
 ALGORITHMS = {"simclr": SimCLR, "byol": BYOL, "simsiam": SimSiam, "relic": ReLIC,
-              "barlow": BarlowTwins, "moco": MoCo, "swav": SwAV, "sela": SeLA}
+              "barlow": BarlowTwins, "moco": MoCo, "swav": SwAV, "sela": SeLA,
+              "dino": DINO}
 
 # algorithms of the JAX package that the port does not run yet
-NOT_PORTED = ("dino", "pirl", "deep_cluster")
+NOT_PORTED = ("pirl", "deep_cluster")
 
 
 def build_algorithm(name: str, config, arch: str, data_info, device):

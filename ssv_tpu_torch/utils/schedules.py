@@ -20,6 +20,21 @@ def cosine_ramp(step, total_steps, lower: float, upper: float):
                  / f32(2))
 
 
+def dino_teacher_temp(epoch, *, lower: float, upper: float, warmup_epochs: int):
+    """Linear teacher-temperature warmup lower -> upper over
+    `warmup_epochs`, then `upper` (reference dino.py:113-120)."""
+    epoch = f32(epoch)
+    if epoch > warmup_epochs:
+        return float(f32(upper))
+    return float(f32(lower) + f32(upper - lower) * epoch / f32(max(warmup_epochs, 1)))
+
+
+def dino_weight_decay(epoch, *, lower: float, upper: float, epochs: int):
+    """Cosine weight-decay ramp lower -> upper over the epochs (reference
+    dino.py:122-127)."""
+    return cosine_ramp(epoch, epochs, lower, upper)
+
+
 def warmup_cosine(step, *, base_lr: float, total_steps: int, warmup_steps: int,
                   end_lr: float = 0.0):
     """Per-step linear warmup from ~0 to base_lr, then cosine decay to end_lr."""

@@ -151,7 +151,7 @@ def test_unported_algorithm_and_arch_raise():
     from ssv_tpu_torch.train.registry import build_algorithm
 
     with pytest.raises(NotImplementedError, match="slice B"):
-        build_algorithm("dino", helpers.mini_config("dino"), "resnet18", None, "cpu")
+        build_algorithm("pirl", helpers.mini_config("pirl"), "resnet18", None, "cpu")
     with pytest.raises(NotImplementedError, match="slice C"):
         build_encoder("resnet50", {})
 

@@ -86,5 +86,17 @@ def test_pipeline_indices_and_eval_padding():
     for k in ("img", "aug_1", "aug_2"):
         assert batch[k].shape == (16, 32, 32, 3) and batch[k].dtype == torch.float32
     assert not torch.equal(batch["aug_1"], batch["aug_2"])
-    with pytest.raises(NotImplementedError, match="slice B"):
-        p.make_batch_fn("multicrop")
+    # the multicrop batch (DINO's): the test view, labels and four view groups
+    mc = DataPipeline(helpers.mini_config("dino", batch_size=16)["data"], "cpu",
+                      synthetic_sizes=(70, 37))
+    assert mc.transforms_cfg is None
+    images, labels = mc.arrays("train")
+    batch = mc.make_batch_fn("multicrop")(images, labels, idx[0],
+                                          torch.Generator().manual_seed(1))
+    want = {"img": (16, 32, 32, 3), "global_1": (16, 2, 32, 32, 3),
+            "global_2": (16, 2, 32, 32, 3), "local_1": (16, 2, 8, 8, 3),
+            "local_2": (16, 2, 8, 8, 3)}
+    assert {k: tuple(v.shape) for k, v in batch.items() if k != "label"} == want
+    assert all(batch[k].dtype == torch.float32 for k in want)
+    assert torch.equal(batch["label"], labels[idx[0]])
+    assert mc.make_eval_transform()(None, images[:2]).shape == (2, 32, 32, 3)

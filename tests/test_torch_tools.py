@@ -49,3 +49,39 @@ def test_photometric_bound_counts_the_ops_the_input_needs():
     params = torch.tensor([[1.0, 1.0, 1.0, 0.0, 0.0]] * 4)  # identity: no hue, no gate
     _, _, _, ops = photometric_bound(images, params)
     assert ops == 4 * 64 * (9 + 24 + 23)
+
+
+def test_step_profile_busy_time_is_the_union_of_device_spans():
+    from ssv_tpu_torch.tools.step_profile import busy_us
+
+    assert busy_us([]) == 0.0
+    # overlapping, nested, touching and apart
+    assert busy_us([(0, 10), (5, 12), (6, 7), (12, 14), (20, 21)]) == 15.0
+
+
+def test_step_profile_counts_device_ops_not_annotations(monkeypatch):
+    import types
+
+    from ssv_tpu_torch.tools import step_profile
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [types.SimpleNamespace(name=n, device_type=d, is_user_annotation=u)
+              for n, d, u in (("gemm", cuda, False), ("Optimizer.step#X.step", cuda, False),
+                              ("my_range", cuda, True), ("aten::mm", cpu, False),
+                              ("Memcpy HtoD", cuda, False),
+                              ("copy_kernel<{lambda()#3}>", cuda, False))]
+    assert [e.name for e in step_profile.device_ops(events)] == [
+        "gemm", "Memcpy HtoD", "copy_kernel<{lambda()#3}>"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        step_profile.profile_steps("configs/dino.yaml", "vit", "dino")
+
+
+def test_step_profile_kinds():
+    from ssv_tpu_torch.tools.step_profile import kind_of
+
+    assert kind_of("void photometric_kernel<16>(...)") == "photometric kernel"
+    assert kind_of("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n") == "matmul and conv"
+    assert kind_of("vectorized_layer_norm_kernel<float>") == "normalisation"
+    assert kind_of("direct_copy_kernel_cuda") == "copies and casts"
+    assert kind_of("GeluCUDAKernelImpl") == "elementwise and other"

@@ -70,6 +70,7 @@ TOWER_BN = {
     "barlow": ({"proj": (0, 1)}, None),
     "swav": ({"proj": (0, 1)}, None),
     "sela": ({}, None),
+    "dino": ({"proj": ()}, {"proj": ()}),
 }
 
 
@@ -87,8 +88,8 @@ def _jax_state_dicts(jstate, algo):
 
 def load_jax_state(tstate, jstate, algo):
     """Loads a JAX TrainState's params, BN statistics and extra state (an EMA
-    target or key tower, a queue or bank, SeLA's self-labelling state) into
-    the port's TrainState."""
+    target or key tower, a queue or bank, SeLA's self-labelling state, DINO's
+    teacher and center) into the port's TrainState."""
     for name, sd in _jax_state_dicts(jstate, algo).items():
         (tstate.model if name == "model" else tstate.extra[name]).load_state_dict(sd)
 
@@ -96,7 +97,7 @@ def load_jax_state(tstate, jstate, algo):
 def assert_state_matches(tstate, jstate, algo, param_tol=1e-4, stat_tol=1e-5):
     """The port's model and extra modules against the JAX state: params
     within `param_tol`, BN running statistics and the float buffers of a
-    queue, bank or SeLA's state within `stat_tol` (abs); integer buffers
+    queue, bank, SeLA's state or DINO's center within `stat_tol` (abs); integer buffers
     (a pointer, pseudo-labels, the best head) exactly."""
     pairs = [(name, tstate.model if name == "model" else tstate.extra[name], sd)
              for name, sd in _jax_state_dicts(jstate, algo).items()]
@@ -108,7 +109,7 @@ def assert_state_matches(tstate, jstate, algo, param_tol=1e-4, stat_tol=1e-5):
             if not w.is_floating_point():
                 np.testing.assert_array_equal(g.numpy(), w.numpy(), err_msg=f"{name}.{k}")
                 continue
-            buffer = name in ("queue", "bank", "self_label")
+            buffer = name in ("queue", "bank", "self_label", "center")
             tol = (stat_tol if buffer or k.endswith(("running_mean", "running_var"))
                    else param_tol)
             np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=tol,
