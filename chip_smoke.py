@@ -45,8 +45,22 @@ center moved from its randn draw, and that the probe took the 1,024-wide
 student output. Phase 2 also times the kernel at DINO's batch of 64, and
 phase 6 holds a float32 DINO step (a small ViT, and a small ResNet with
 unfused views) on the card against the CPU.
+Phase 11 runs PIRL ResNet-18 from configs/pirl.yaml (batch 256, 16x16
+patches, 4 a view, 1,000 negatives, bank momentum 0.5; cut to 2 epochs)
+through the CLI, interrupted at epoch 2's start and resumed with `-l` as
+phase 4 does: the bank after the resume equals the bank at the stop bit for
+bit, the rows epoch 2 touched (and only those) changed, every row is finite.
+Phase 12 runs DeepCluster ResNet-18 from configs/deep_cluster.yaml (batch
+512, K-means of 300 iterations x 10 restarts over the 50,000 x 512 features
+at each epoch's start; cut to 2 epochs) through the CLI, interrupted and
+resumed likewise: the pseudo-labels after the resume equal those at the
+stop, and cover every train index with values in [0, 10); it prints the
+seconds of `map_train`, K-means and the Hungarian step of each epoch.
+Phase 6 also holds a float32 PIRL step (JAX-free fixed draws) and a
+DeepCluster step on the card against the CPU.
 Every training phase checks the photometric launches per train step (two,
-one for SeLA's single augmented view), prints its steady img/s and its peak
+one for SeLA's single augmented view; DeepCluster builds and pays for the
+`aug_2` it never reads), prints its steady img/s and its peak
 memory above what it inherited, and checks that what each run inherits stays
 within 64 MiB of what the first run inherited. Any failure raises; the line
 before the last holds the kernels' numbers, the last line the JSON result.
@@ -72,10 +86,11 @@ HELD_SLACK = 64 << 20   # bytes a run may inherit beyond what the first run did
 # photometric launches per train step on each path: two train views, or
 # SeLA's one augmented view
 LAUNCHES_PER_STEP = {"simclr": 2, "byol": 2, "simsiam": 2, "relic": 2, "barlow": 2,
-                     "moco": 2, "swav": 2, "sela": 1, "dino": 2}
+                     "moco": 2, "swav": 2, "sela": 1, "dino": 2, "pirl": 2,
+                     "deep_cluster": 2}
 # the batches the paths give the kernel: 512 (SimCLR, BYOL, SimSiam, ReLIC,
-# Barlow, SwAV), 256 (MoCo), 500 (SeLA), 64 (DINO, whose two base
-# transforms run before the multi-crop); the first is the main path's
+# Barlow, SwAV, DeepCluster), 256 (MoCo, PIRL), 500 (SeLA), 64 (DINO, whose
+# two base transforms run before the multi-crop); the first is the main path's
 TIMED_BATCHES = (512, 256, 500, 64)
 
 
@@ -203,6 +218,9 @@ SMALL_STEPS = {
     "swav": {"hidden_dim": 32, "proj_dim": 16, "prototype_size": 40, "feature_bank_size": 48,
              "loss_fn": {"temperature": 0.1, "sinkhorn_eps": 0.05, "sinkhorn_iters": 3}},
     "sela": {"num_clusters": 8, "num_cluster_heads": 3, "lambda": 25, "self_label_iters": 5},
+    "pirl": {"proj_dim": 16, "patch_size": 8, "num_patches": 4, "num_negatives": 24,
+             "momentum": 0.5, "loss_fn": {"normalize": True, "temperature": 0.07}},
+    "deep_cluster": {"num_classes": 4},
 }
 # DINO at a tiny size: a 2-layer ViT of width 32 on 16x16 globals (16
 # patches) and 8x8 locals (4), or the small ResNet with unfused views
@@ -222,11 +240,14 @@ def phase_small_steps(names) -> None:
     `dino` case: a 2-layer ViT) at 16x16, batch 8 (DINO: 2+2 16x16 global
     and 2+2 8x8 local crops of each), on the card and on the CPU from the
     same weights and views: the CPU path is the one the tests hold against
-    the JAX package. The views are given, so no kernel launches here. Loss
+    the JAX package. The views are given, so no kernel launches here; so
+    are PIRL's draws (a patch permutation and 24 negative rows) and bank
+    (random unit rows), and the pseudo-labels of SeLA and DeepCluster. Loss
     within 1e-5 relative (to 1 where the loss is nearer 0, as SimSiam's mean
     cosine is), every weight, BN statistic and buffer (an EMA target, key
     tower or teacher, a queue or bank and its pointer, SeLA's alpha, beta,
-    pseudo-labels and best head, DINO's center) within 1e-4."""
+    pseudo-labels and best head, DINO's center, PIRL's bank, DeepCluster's
+    pseudo-labels) within 1e-4."""
     from ssv_tpu_torch.models import registry
     from ssv_tpu_torch.models.resnet import BasicBlock, ResNet
     from ssv_tpu_torch.train.base import DataInfo
@@ -237,7 +258,9 @@ def phase_small_steps(names) -> None:
     g = torch.Generator().manual_seed(0)
     views = {k: torch.rand(8, 16, 16, 3, generator=g) for k in ("aug_1", "aug_2", "img")}
     views["aug"] = views["aug_1"]
-    views["idx"] = torch.randperm(64, generator=g)[:8]
+    views["idx"] = views["index"] = torch.randperm(64, generator=g)[:8]
+    perm, negatives = torch.randperm(4, generator=g), torch.randperm(64, generator=g)[:24]
+    bank = torch.nn.functional.normalize(torch.randn(64, 16, generator=g), dim=1)
     for k, size in (("global_1", 16), ("global_2", 16), ("local_1", 8), ("local_2", 8)):
         views[k] = torch.rand(8, 2, size, size, 3, generator=g)
     resnet18 = registry.NETWORKS["resnet18"]
@@ -260,7 +283,14 @@ def phase_small_steps(names) -> None:
                 if algo_name == "sela":
                     labels = state.extra["self_label"].pseudo_labels
                     labels.copy_(torch.arange(64) % 8)
-                state, m = algo.train_step(state, {k: v.to(dev) for k, v in views.items()})
+                elif algo_name == "deep_cluster":
+                    state.extra["pseudo_labels"].labels.copy_(torch.arange(64) % 4)
+                elif algo_name == "pirl":
+                    state.extra["bank"].data.copy_(bank)
+                    algo.draw = lambda g, b, idx, dev=dev: (perm.to(dev),
+                                                            b.data[negatives.to(dev)])
+                state, m = algo.train_step(state, {k: v.to(dev) for k, v in views.items()},
+                                           None)
                 tensors = {f"model.{k}": v for k, v in state.model.state_dict().items()}
                 for part, module in state.extra.items():
                     tensors.update({f"{part}.{k}": v for k, v in module.state_dict().items()})
@@ -436,14 +466,16 @@ class Interrupt(Exception):
 
 def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet18",
                              target: str = "target", at_start=None, at_stop=None,
-                             **overrides) -> dict:
+                             at_resume=None, **overrides) -> dict:
     """configs/<name>.yaml, cut to 2 epochs with an eval each, through the
     CLI: stopped at the start of epoch 2 by an exception that `train_safe`
     sees (after it saved `latest`), then resumed with `-l`. Checks that the
-    EMA target, key tower or teacher (`state.extra[target]`) moved in epoch
+    EMA target, key tower, teacher, bank or pseudo-labels
+    (`state.extra[target]`: its parameters, else its buffers) moved in epoch
     1. `at_start(state)` runs at epoch 1's start, `at_stop(state, trainer,
-    target as it was at epoch 1's start)` at the stop; what they return
-    comes back under those names."""
+    target as it was at epoch 1's start)` at the stop, `at_resume(state,
+    what at_stop returned)` at the resumed run's first epoch start; what they
+    return comes back under those names."""
     from ssv_tpu_torch import main as cli
     from ssv_tpu_torch.ops.photometric import fused_photometric
 
@@ -451,7 +483,8 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
 
     def stop_after_epoch_1(pre_epoch):
         def hook(state, trainer, epoch):
-            params = list(state.extra[target].parameters())
+            module = state.extra[target]
+            params = list(module.parameters()) or list(module.buffers())
             if epoch == 1:
                 first["target"] = [p.detach().clone() for p in params]
                 if at_start is not None:
@@ -470,6 +503,13 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
     run = os.path.join(tmp, "run")
     argv = ["-c", _config(tmp, name, epochs=2, eval_every=1, **overrides),
             "-m", arch, "-a", name]
+    def check_resume(pre_epoch):
+        def hook(state, trainer, epoch):
+            if "at_resume" not in first:
+                first["at_resume"] = at_resume(state, first.get("at_stop"))
+            return pre_epoch(state, trainer, epoch)
+        return hook
+
     held = [_held_before_run(f"{name} epoch 1")]
     fused_photometric.launches = 0
     with _Hooks(pre_epoch=stop_after_epoch_1):
@@ -486,7 +526,8 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
     first_peak = torch.cuda.max_memory_allocated() - held[0]
 
     held.append(_held_before_run(f"{name} resumed"))
-    resumed = cli.main([*argv, "-t", "train", "-o", run, "-l", run])
+    with _Hooks(**({"pre_epoch": check_resume} if at_resume is not None else {})):
+        resumed = cli.main([*argv, "-t", "train", "-o", run, "-l", run])
     launches = fused_photometric.launches
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - held[1]
@@ -511,7 +552,8 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
     return {"launches": launches, "steps": steps, "peak_bytes": [first_peak, peak],
             "held_bytes": held, "img_per_s": [e["steady_img_per_s"] for e in stats],
             "linear_eval": probe, "argv": argv, "run": run, "resumed": resumed,
-            "at_start": first.get("at_start"), "at_stop": first.get("at_stop")}
+            "at_start": first.get("at_start"), "at_stop": first.get("at_stop"),
+            "at_resume": first.get("at_resume")}
 
 
 def phase_byol(card: str) -> dict:
@@ -785,6 +827,128 @@ def phase_dino(card: str) -> dict:
     return out
 
 
+def phase_pirl(card: str) -> dict:
+    """PIRL ResNet-18 from configs/pirl.yaml (batch 256, patches of 16, 4 a
+    view, so 1,024 patch images a step; 1,000 negatives; bank momentum 0.5;
+    proj 128), cut to 2 epochs, interrupted and resumed through the CLI:
+    the bank after the resume equals the bank at the stop bit for bit; at
+    the end exactly the rows epoch 2's batches touched differ from the bank
+    at the stop, and every row is finite."""
+    def bank_at_stop(state, trainer, before):
+        return state.extra["bank"].data.cpu()
+
+    def bank_restored(state, saved):
+        return torch.equal(state.extra["bank"].data.cpu(), saved)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _interrupted_and_resumed("pirl", tmp, card, target="bank",
+                                       at_stop=bank_at_stop, at_resume=bank_restored)
+        resumed = out.pop("resumed")
+        del out["argv"], out["run"]
+        bank = resumed.state.extra["bank"].data.cpu()
+        steps_2, batch = resumed.epoch_stats[0]["steps"], resumed.pipeline.batch_size
+        n_patches = resumed.algorithm.num_patches
+        del resumed
+    saved = out.pop("at_stop")
+    changed = int((bank != saved).any(dim=1).sum())
+    finite = bool(torch.isfinite(bank).all())
+    norms = bank.norm(dim=1)
+    print(f"[pirl] bank {tuple(bank.shape)} float32: equal to the bank at the stop after the "
+          f"resume: {out['at_resume']}; epoch 2 ({steps_2} steps of {batch}, {n_patches} "
+          f"patches an image) changed {changed} rows; all rows finite: {finite}; row norms "
+          f"{norms.min().item():.4f}-{norms.max().item():.4f}")
+    if out["at_resume"] is not True or changed != steps_2 * batch or not finite:
+        raise AssertionError(f"pirl: bank restored {out['at_resume']}, {changed} rows changed "
+                             f"in epoch 2 (expected {steps_2 * batch}), finite {finite}")
+    out.update(bank_rows_changed=changed)
+    return out
+
+
+class _Timed:
+    """Times calls of `owner.<name>` for each (owner, name), the device
+    synchronized before and after each call, restored on exit."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.seconds = {name: [] for _, name in targets}
+
+    def __enter__(self):
+        self.saved = [(owner, name, getattr(owner, name)) for owner, name in self.targets]
+        for owner, name, fn in self.saved:
+            setattr(owner, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def phase_deep_cluster(card: str) -> dict:
+    """DeepCluster ResNet-18 from configs/deep_cluster.yaml (batch 512, 10
+    classes, K-means 300 iterations x 10 restarts), cut to 2 epochs,
+    interrupted and resumed through the CLI: the pseudo-labels after the
+    resume equal those at the stop, and at the end they cover every train
+    index with values in [0, 10). Prints the seconds of each epoch's
+    `map_train` (features and predictions of the 50,000 train images),
+    K-means and Hungarian step, host clock with the device synchronized."""
+    from ssv_tpu_torch.train import trainer as trainer_mod
+    from ssv_tpu_torch.train.algorithms import deep_cluster as dc_mod
+
+    def labels_at_stop(state, trainer, before):
+        return state.extra["pseudo_labels"].labels.cpu()
+
+    def labels_restored(state, saved):
+        return torch.equal(state.extra["pseudo_labels"].labels.cpu(), saved)
+
+    with tempfile.TemporaryDirectory() as tmp, _Timed(
+            (trainer_mod.Trainer, "map_train"), (dc_mod, "kmeans"),
+            (dc_mod, "hungarian_match")) as timed:
+        out = _interrupted_and_resumed("deep_cluster", tmp, card, target="pseudo_labels",
+                                       at_stop=labels_at_stop, at_resume=labels_restored)
+        resumed = out.pop("resumed")
+        del out["argv"], out["run"]
+        algo = resumed.algorithm
+        labels = resumed.state.extra["pseudo_labels"].labels
+        n_train, k = resumed.pipeline.n_train, algo.num_classes
+        lo, hi, used = int(labels.min()), int(labels.max()), int(labels.unique().numel())
+        feats_dim = int(resumed.config["linear_eval"]["input_dim"])
+        km = (algo.kmeans_iters, algo.kmeans_redo)
+        shape_ok = labels.shape == (n_train,)
+        del resumed, algo, labels
+    del out["at_stop"]
+    secs = timed.seconds
+    # float32 work of one K-means: per iteration one (N, d) x (d, R*K)
+    # product to assign and one (R*K, N) x (N, d) to sum, 2 N d R K each
+    flops = (2 * km[0] + 1) * 2 * n_train * feats_dim * km[1] * k
+    bound_s = flops / 67e12
+    print(f"[deep_cluster] pseudo-labels equal to those at the stop after the resume: "
+          f"{out['at_resume']}; after epoch 2's clustering they cover {n_train} indices, "
+          f"values {lo}-{hi}, {used} of {k} in use")
+    for e in range(len(secs["kmeans"])):
+        print(f"[deep_cluster] epoch {e + 1}: map_train {secs['map_train'][e]:.3f} s, K-means "
+              f"{km[0]} x {km[1]} over {n_train} x {feats_dim} {secs['kmeans'][e]:.3f} s "
+              f"(float32 bound {bound_s:.3f} s: {flops / 1e12:.2f} TFLOP at 67 TFLOP/s), "
+              f"Hungarian {secs['hungarian_match'][e]:.4f} s | {card}")
+    if out["at_resume"] is not True or not shape_ok or lo < 0 or hi >= k:
+        raise AssertionError(f"deep_cluster: labels restored {out['at_resume']}, shape ok "
+                             f"{shape_ok}, values {lo}-{hi} for {k} classes")
+    if not len(secs["kmeans"]) == len(secs["map_train"]) == len(secs["hungarian_match"]) == 2:
+        raise AssertionError(f"deep_cluster: expected one clustering an epoch: {secs}")
+    out.update(seconds=secs, kmeans_bound_s=bound_s, labels_in_use=used)
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_env()
@@ -795,12 +959,15 @@ def main() -> None:
              "byol": phase_byol(card)["launches"]}
     paths.update({k: v["launches"] for k, v in phase_family(card).items()})
     phase_small_steps(["byol", "simsiam", "simsiam-frozen", "relic", "barlow",
-                       "moco", "swav", "sela", "dino", "dino-resnet"])
+                       "moco", "swav", "sela", "dino", "dino-resnet", "pirl",
+                       "deep_cluster"])
     phase_probe_steps()
     paths["moco"] = phase_moco(card)["launches"]
     paths["swav"] = phase_swav(card)["launches"]
     paths["sela"] = phase_sela(card)["launches"]
     paths["dino"] = phase_dino(card)["launches"]
+    paths["pirl"] = phase_pirl(card)["launches"]
+    paths["deep_cluster"] = phase_deep_cluster(card)["launches"]
     _held_before_run("the end")
     print(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s | {card}")
     kernels[0]["launches"] = sum(paths.values())

@@ -26,7 +26,9 @@ names:
 `{"model": Tower, "prototypes": {"table"}}` -> `tower.*` and
 `prototypes.table`; SeLA's `SelaNet` (`encoder`, `cluster_heads` with its
 (heads, dim, clusters) kernel, kept in that layout) -> `encoder.*` and
-`cluster_heads.*`.
+`cluster_heads.*`; an encoder beside named Dense layers (PIRL's `PirlNet`:
+`f_proj`, `g_proj_head_initial`, `g_proj_head_final`; DeepCluster's
+`DCNet`: `clf_head`) -> `encoder.*` and `<name>.weight`/`.bias`.
 
 `extra_state_dicts` maps the rest of a JAX `TrainState.extra` to the
 port's `state.extra` modules: an EMA target (`target_params` /
@@ -34,8 +36,9 @@ port's `state.extra` modules: an EMA target (`target_params` /
 -> `target`; DINO's teacher (`teacher_params` / `teacher_batch_stats`) ->
 `teacher` and its `center` -> `value` of `center`; a `RingBuffer` (MoCo's
 `queue`, SwAV's `bank`) -> `data` and `ptr` of the module of the same
-name; SeLA's `alpha`, `beta`, `pseudo_labels` and `best_head` -> the
-buffers of `self_label`.
+name, PIRL's `SampleBank` `bank` -> `data` of `bank`; SeLA's `alpha`,
+`beta`, `pseudo_labels` and `best_head` -> the buffers of `self_label`;
+DeepCluster's `pseudo_labels` alone -> `labels` of `pseudo_labels`.
 """
 
 from __future__ import annotations
@@ -155,17 +158,21 @@ def dino_head_state_dict(params: dict, prefix: str = "") -> dict:
     return out
 
 
+def _encoder_state_dict(params: dict, batch_stats: dict, stage_sizes: Sequence[int]) -> dict:
+    """The `encoder` of a flax model, a ResNet or a ViT (by its variables)."""
+    if "cls_embedding" in params["encoder"]:
+        return vit_state_dict(params["encoder"], prefix="encoder.")
+    return resnet_state_dict(params["encoder"], batch_stats["encoder"], stage_sizes,
+                             prefix="encoder.")
+
+
 def tower_state_dict(params: dict, batch_stats: dict, stage_sizes: Sequence[int],
                      bn_after: dict[str, Sequence[int]]) -> dict:
     """flax Tower(encoder, proj, pred) variables -> port Tower state_dict;
     the encoder a ResNet or a ViT (by its variables); `bn_after` gives each
     head of the tower (`proj`, `pred`) its layers followed by BatchNorm (a
     DinoHead has none)."""
-    if "cls_embedding" in params["encoder"]:
-        out = vit_state_dict(params["encoder"], prefix="encoder.")
-    else:
-        out = resnet_state_dict(params["encoder"], batch_stats["encoder"],
-                                stage_sizes, prefix="encoder.")
+    out = _encoder_state_dict(params, batch_stats, stage_sizes)
     heads = set(params) - {"encoder"}
     if heads != set(bn_after):
         raise KeyError(f"flax tower heads {sorted(heads)}, bn_after given for "
@@ -193,6 +200,12 @@ def model_state_dict(params: dict, batch_stats: dict, stage_sizes: Sequence[int]
         out["cluster_heads.kernel"] = _t(params["cluster_heads"]["kernel"])
         out["cluster_heads.bias"] = _t(params["cluster_heads"]["bias"])
         return out
+    dense = set(params) - {"encoder"}
+    if all("kernel" in params[name] for name in dense):      # PirlNet, DCNet
+        out = _encoder_state_dict(params, batch_stats, stage_sizes)
+        for name in dense:
+            _dense(out, name, params[name])
+        return out
     return tower_state_dict(params, batch_stats, stage_sizes, bn_after)
 
 
@@ -213,10 +226,17 @@ def extra_state_dicts(extra: dict, stage_sizes: Sequence[int],
         done.add("center")
     for name in ("queue", "bank"):
         if name in extra:
-            data, ptr = extra[name]                 # a RingBuffer (data, ptr)
-            out[name] = {"data": _t(data), "ptr": torch.tensor(int(ptr))}
+            buf = extra[name]
+            if hasattr(buf, "ptr"):                 # a RingBuffer (data, ptr)
+                out[name] = {"data": _t(buf.data), "ptr": torch.tensor(int(buf.ptr))}
+            else:                                   # PIRL's SampleBank (data,)
+                out[name] = {"data": _t(buf.data)}
             done.add(name)
-    if "pseudo_labels" in extra:
+    if "pseudo_labels" in extra and "alpha" not in extra:     # DeepCluster
+        out["pseudo_labels"] = {
+            "labels": torch.from_numpy(np.array(extra["pseudo_labels"], np.int64))}
+        done.add("pseudo_labels")
+    elif "pseudo_labels" in extra:                            # SeLA
         out["self_label"] = {
             "alpha": _t(extra["alpha"]), "beta": _t(extra["beta"]),
             "pseudo_labels": torch.from_numpy(np.array(extra["pseudo_labels"], np.int64)),

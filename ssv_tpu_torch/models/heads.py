@@ -1,13 +1,14 @@
 """Projection heads and prototype tables (port of ssv_tpu/models/heads.py:
 the MLP heads of SimCLR, BYOL and ReLIC, SimSiam, Barlow Twins and SwAV,
 MoCo's linear head, DINO's weight-normed head, SwAV's prototypes and SeLA's
-cluster heads).
+cluster heads), and the float32 Dense of PIRL's and DeepCluster's heads.
 
 The head's Linear layers run in the caller's autocast dtype (bf16 on the
 card) with f32 params; each BatchNorm takes and returns float32, and the
 head's output is float32, as in the flax head. `Prototypes`,
-`ClusterHeads` and `WeightNormDense` (with the L2 normalisation before it
-in `DinoHead`) are float32 throughout, as their flax modules are.
+`ClusterHeads`, `Float32Dense` and `WeightNormDense` (with the L2
+normalisation before it in `DinoHead`) are float32 throughout, as their
+flax modules are.
 """
 
 from __future__ import annotations
@@ -120,6 +121,21 @@ class LinearHead(MLPHead):
 
     def forward(self, x):
         return super().forward(F.relu(x))
+
+
+class Float32Dense(nn.Linear):
+    """flax's `nn.Dense` without a dtype over float32 features and params:
+    float32 whatever the caller's autocast, the product then the bias;
+    lecun normal (truncated) kernel, zero bias."""
+
+    def forward(self, x):
+        with torch.autocast(x.device.type, enabled=False):
+            return _dense(self, x.float())
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator):
+        _lecun_trunc_normal_(self.weight, self.in_features, generator)
+        nn.init.zeros_(self.bias)
 
 
 class WeightNormDense(nn.Module):

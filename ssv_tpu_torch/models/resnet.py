@@ -7,7 +7,10 @@ flattened float32 features with no classifier head. Inside, an NHWC tensor
 is viewed as channels-last NCHW (`permute`, no copy) for cuDNN.
 
 Mixed precision is the caller's `torch.autocast` (bf16 compute, f32 params,
-f32 BN statistics), as `dtype=bfloat16` is in the flax module.
+f32 BN statistics), as `dtype=bfloat16` is in the flax module, unless the
+module is given its own compute `dtype`: float32 runs it with autocast off
+on float32 inputs, bfloat16 under bf16 autocast, whatever the caller's
+region, as the flax module's `dtype` does.
 """
 
 from __future__ import annotations
@@ -79,8 +82,10 @@ class ResNet(nn.Module):
     """Feature extractor: (B, H, W, 3) -> (B, 64 * 2**(stages-1) * expansion)."""
 
     def __init__(self, block: type, stage_sizes: Sequence[int],
-                 reduce_bottom_conv: bool = False, zero_init_residual: bool = False):
+                 reduce_bottom_conv: bool = False, zero_init_residual: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         if reduce_bottom_conv:
             self.conv1 = _conv(3, 64, 3, 1, 1)
         else:
@@ -102,6 +107,13 @@ class ResNet(nn.Module):
         self.zero_init_residual = zero_init_residual
 
     def forward(self, x):
+        if self.dtype is None:
+            return self._features(x)
+        with torch.autocast(x.device.type, dtype=torch.bfloat16,
+                            enabled=self.dtype == torch.bfloat16):
+            return self._features(x.float())
+
+    def _features(self, x):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels-last in memory
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for stage in range(self.num_stages):

@@ -18,10 +18,11 @@ What the JAX module does, kept here:
     and columns cut;
   * the output is the CLS token in float32.
 
-Numerics. The compute dtype is the caller's autocast dtype (bf16 on the
-card), else float32; the module casts explicitly with autocast off, as the
-flax module's `dtype` does, since autocast's own choices differ from it
-(its `layer_norm` returns float32, and the score product would be bf16):
+Numerics. The compute dtype is the module's `dtype` where it is given,
+else the caller's autocast dtype (bf16 on the card), else float32; the
+module casts explicitly with autocast off, as the flax module's `dtype`
+does, since autocast's own choices differ from it (its `layer_norm`
+returns float32, and the score product would be bf16):
   * LayerNorm computes in float32 and emits the compute dtype, so the
     residual stream is in the compute dtype;
   * the patch convolution, the CLS and position projections, Q/K/V, the
@@ -124,8 +125,10 @@ class TransformerEncoder(nn.Module):
     def __init__(self, hidden_dim: int, embedding_dim: int, intermediate_dim: int,
                  num_attention_heads: int, patch_size: int, num_encoder_layers: int,
                  num_global_patches: int, num_local_patches: int,
-                 seq_pad_multiple: int = 0, fuse_qkv: bool = False):
+                 seq_pad_multiple: int = 0, fuse_qkv: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.hidden_dim, self.patch_size = hidden_dim, patch_size
         self.num_global_patches, self.num_local_patches = num_global_patches, num_local_patches
         self.seq_pad_multiple = seq_pad_multiple
@@ -165,7 +168,7 @@ class TransformerEncoder(nn.Module):
         return x + (pos.to(dt) @ w_pos.T)[None] + self.projection_fc.bias.to(dt)
 
     def forward(self, img, return_attn: bool = False):
-        dt = compute_dtype(img.device)
+        dt = self.dtype or compute_dtype(img.device)
         with torch.autocast(img.device.type, enabled=False):
             x = self.embed(img, dt)
             seq = x.shape[1]

@@ -1,7 +1,7 @@
 """SSL objectives (port of ssv_tpu/objectives/losses.py: NT-Xent, MoCo's
 InfoNCE, BYOL, SimSiam, Barlow Twins, ReLIC, SwAV's Sinkhorn codes and
-swapped prediction, SeLA's self-labelling, and DINO's centred
-cross-entropy).
+swapped prediction, SeLA's self-labelling, DINO's centred cross-entropy and
+PIRL's two-term NCE).
 
 Losses take and compute in float32; call them outside any autocast region.
 """
@@ -172,3 +172,34 @@ def dino_loss(teacher_views, student_views, temp_s: float, temp_t: float, center
         probs_t = torch.softmax((teacher_views[:, t, :] - center) / temp_t, dim=-1)
         total = total - (probs_t[:, None, :] * logp_s).sum(dim=-1).mean()
     return total
+
+
+NEGATIVES_FROM = ("features", "memory")
+
+
+def pirl_nce(img_features, patch_features, memory_pos, memory_neg,
+             temperature: float = 1.0, loss_weight: float = 0.5,
+             normalize: bool = True, negatives_from: str = "memory"):
+    """PIRL's NCE against a per-sample bank (reference losses.py:92-117):
+    loss_weight * CE(patch) + (1 - loss_weight) * CE(image), each with its
+    bank row `memory_pos` as the positive (label 0) and the sampled bank rows
+    `memory_neg` as negatives. `negatives_from="features"` scores each term's
+    own features against the negatives; `"memory"` keeps the reference's
+    quirk, one negative block mm(memory_pos, memory_neg^T) shared by both
+    terms, so no repulsion gradient reaches the features."""
+    if negatives_from not in NEGATIVES_FROM:
+        raise ValueError(f"negatives_from must be one of {NEGATIVES_FROM}, "
+                         f"got {negatives_from!r}")
+    if normalize:
+        img_features, patch_features = l2_normalize(img_features), l2_normalize(patch_features)
+    pos1 = (memory_pos * patch_features).sum(dim=-1, keepdim=True) / temperature
+    pos2 = (memory_pos * img_features).sum(dim=-1, keepdim=True) / temperature
+    if negatives_from == "features":
+        neg1 = (patch_features @ memory_neg.T) / temperature
+        neg2 = (img_features @ memory_neg.T) / temperature
+    else:
+        neg1 = neg2 = (memory_pos @ memory_neg.T) / temperature
+    labels = torch.zeros(img_features.shape[0], dtype=torch.int64, device=img_features.device)
+    loss1 = softmax_cross_entropy(torch.cat([pos1, neg1], dim=1), labels)
+    loss2 = softmax_cross_entropy(torch.cat([pos2, neg2], dim=1), labels)
+    return loss_weight * loss1 + (1.0 - loss_weight) * loss2

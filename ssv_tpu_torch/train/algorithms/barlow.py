@@ -18,7 +18,7 @@ class BarlowTwins(Algorithm):
 
     def __init__(self, config, arch: str, data: DataInfo, device: torch.device):
         super().__init__(config, arch, data, device)
-        encoder, dim = build_encoder(arch, dict(config.get("encoder") or {}))
+        encoder, dim = build_encoder(arch, self.encoder_cfg())
         self.model = Tower(encoder, barlow_projection(dim, int(config["proj_dim"])))
         self.loss_cfg = dict(config.get("loss_fn", {}) or {})
         self.fuse = bool(config.get("fuse_views", False))

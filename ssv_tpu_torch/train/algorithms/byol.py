@@ -32,7 +32,7 @@ class BYOL(Algorithm):
     def __init__(self, config, arch: str, data: DataInfo, device: torch.device):
         super().__init__(config, arch, data, device)
         proj_dim = int(config["proj_dim"])
-        encoder_cfg = dict(config.get("encoder") or {})
+        encoder_cfg = self.encoder_cfg()
         encoder, dim = build_encoder(arch, encoder_cfg)
         encoder_t, _ = build_encoder(arch, encoder_cfg)
         self.online = Tower(encoder, byol_mlp(dim, proj_dim),

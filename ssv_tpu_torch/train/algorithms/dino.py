@@ -62,7 +62,7 @@ class DINO(Algorithm):
         super().__init__(config, arch, data, device)
         head_cfg = dict(config["proj_head"])
         self.proj_dim = int(head_cfg["proj_dim"])
-        encoder_cfg = dict(config.get("encoder") or {})
+        encoder_cfg = self.encoder_cfg()
         towers = []
         for _ in range(2):
             encoder, dim = build_encoder(arch, encoder_cfg)

@@ -35,7 +35,7 @@ class MoCo(Algorithm):
     def __init__(self, config, arch: str, data: DataInfo, device: torch.device):
         super().__init__(config, arch, data, device)
         self.proj_dim = int(config["proj_dim"])
-        encoder, dim = build_encoder(arch, dict(config.get("encoder") or {}))
+        encoder, dim = build_encoder(arch, self.encoder_cfg())
         self.model = Tower(encoder, LinearHead(dim, self.proj_dim))
         self.queue_size = int(config["queue_size"])
         self.m = float(config.get("momentum", 0.999))

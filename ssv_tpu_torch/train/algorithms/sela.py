@@ -82,7 +82,7 @@ class SeLA(Algorithm):
         if self.sl_mode not in SELF_LABEL_MODES:
             raise ValueError(f"self_label_mode must be one of {SELF_LABEL_MODES}, "
                              f"got {self.sl_mode!r}")
-        encoder, dim = build_encoder(arch, dict(config.get("encoder") or {}))
+        encoder, dim = build_encoder(arch, self.encoder_cfg())
         self.model = SelaNet(encoder, dim, self.num_heads, self.num_clusters)
         self.sl_epochs = self_label_epochs(self.epochs, self.sl_iters)
 

@@ -34,7 +34,7 @@ class SimSiam(Algorithm):
         self.mode = str(config.get("target_mode", "stopgrad"))
         if self.mode not in TARGET_MODES:
             raise ValueError(f"target_mode must be one of {TARGET_MODES}, got {self.mode!r}")
-        encoder_cfg = dict(config.get("encoder") or {})
+        encoder_cfg = self.encoder_cfg()
         encoder, dim = build_encoder(arch, encoder_cfg)
         self.online = Tower(encoder, simsiam_projector(dim, proj_dim),
                             pred=simsiam_predictor(proj_dim, bottleneck), norm_out=True)

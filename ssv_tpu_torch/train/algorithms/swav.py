@@ -47,7 +47,7 @@ class SwAV(Algorithm):
     def __init__(self, config, arch: str, data: DataInfo, device: torch.device):
         super().__init__(config, arch, data, device)
         self.proj_dim = int(config["proj_dim"])
-        encoder, dim = build_encoder(arch, dict(config.get("encoder") or {}))
+        encoder, dim = build_encoder(arch, self.encoder_cfg())
         tower = Tower(encoder, swav_projection(dim, int(config["hidden_dim"]), self.proj_dim))
         self.model = SwAVModel(tower, Prototypes(int(config["prototype_size"]), self.proj_dim))
         self.bank_size = int(config["feature_bank_size"])

@@ -58,6 +58,15 @@ class Algorithm:
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute!r}")
         self.autocast_dtype = None if compute == "float32" else torch.bfloat16
 
+    def encoder_cfg(self) -> dict:
+        """The `encoder` block with `compute_dtype` folded in as its `dtype`
+        where it sets none: an explicit encoder `dtype` overrides the
+        algorithm's autocast inside the encoder, and the heads keep it."""
+        cfg = dict(self.config.get("encoder") or {})
+        if self.config.get("compute_dtype"):
+            cfg.setdefault("dtype", self.config["compute_dtype"])
+        return cfg
+
     def autocast(self):
         """The mixed-precision region for model forwards."""
         if self.autocast_dtype is None:

@@ -105,15 +105,24 @@ class Trainer:
         """`_stream` over the train split (SeLA's self-labelling)."""
         return self._stream(state, fn, "train")
 
+    def map_train(self, state: TrainState, fn):
+        """fn(state, images) -> a tuple of tensors, over the train split in
+        order; returns each output concatenated over the split, on the
+        device (DeepCluster's features and predictions)."""
+        chunks = [[o[:count] for o in out]
+                  for out, _, count in self._stream(state, fn, "train")]
+        return tuple(torch.cat(parts) for parts in zip(*chunks))
+
     def features_for(self, state: TrainState, split: str = "train",
-                     progress_desc: str | None = None):
+                     feature_fn=None, progress_desc: str | None = None):
         """Returns (fvecs, labels) as tensors on the device, with the
-        algorithm's embed semantics."""
+        algorithm's embed semantics, or `feature_fn(state, images)`'s."""
         _, labels = self.pipeline.arrays(split)
         n = labels.shape[0]
         n_batches = -(-n // self.pipeline.batch_size)
         chunks = []
-        for i, (z, _, count) in enumerate(self._stream(state, self.algorithm.embed, split)):
+        fn = feature_fn or self.algorithm.embed
+        for i, (z, _, count) in enumerate(self._stream(state, fn, split)):
             chunks.append(z[:count])
             if progress_desc:
                 progress_bar(progress=(i + 1) / n_batches, desc=progress_desc)

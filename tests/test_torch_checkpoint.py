@@ -1,7 +1,7 @@
 """The port's checkpoints through its Trainer on the CPU: a round trip, the
 task-dependent choice of `latest` and `best_model`, `train_safe` saving on
-failure, exact resume (an interrupted and resumed BYOL, MoCo or SeLA run
-equals the run that was never stopped, bit for bit), and a dropped Trainer
+failure, exact resume (an interrupted and resumed BYOL, MoCo, SeLA, PIRL
+or DeepCluster run equals the run that was never stopped, bit for bit), and a dropped Trainer
 freeing its model and dataset."""
 
 import gc
@@ -152,17 +152,25 @@ def test_exact_resume_byol(tmp_path, monkeypatch):
 
 
 # MoCo: a queue of 40 rows, pushed across its end within an epoch; SeLA in
-# the reference mode, which threads alpha and beta through each sweep
+# the reference mode, which threads alpha and beta through each sweep; PIRL
+# with 16x16 views in four 8x8 patches and 20 negatives of 64 bank rows;
+# DeepCluster relabelling at each epoch's start
 STATEFUL = [("moco", {"queue_size": 40}),
-            ("sela", {"self_label_mode": "reference", "self_label_iters": 5})]
+            ("sela", {"self_label_mode": "reference", "self_label_iters": 5}),
+            ("pirl", {"patch_size": 8, "num_negatives": 20}),
+            ("deep_cluster", {})]
 
 
-@pytest.mark.parametrize("algo,cfg_extra", STATEFUL, ids=["moco", "sela"])
+@pytest.mark.parametrize("algo,cfg_extra", STATEFUL,
+                         ids=["moco", "sela", "pirl", "deep_cluster"])
 def test_exact_resume_stateful(algo, cfg_extra, tmp_path, monkeypatch):
     """As `test_exact_resume_byol`, for the state that is neither weights
     nor optimizer: MoCo's key tower, queue and pointer; SeLA's alpha, beta,
     pseudo-labels and best head (relabelled at `pre_train` and at epoch 1's
-    start, so the resumed run starts from the checkpoint's labels)."""
+    start, so the resumed run starts from the checkpoint's labels); PIRL's
+    bank (filled at `pre_train`, which the resumed run skips); DeepCluster's
+    pseudo-labels (clustered anew at epoch 2's start from the restored
+    weights)."""
     kw = dict(algo=algo, cfg_extra=cfg_extra)
     straight = _trainer(tmp_path, monkeypatch, output="straight", **kw)
     acc = straight.train()
@@ -186,9 +194,15 @@ def test_exact_resume_stateful(algo, cfg_extra, tmp_path, monkeypatch):
     extra = resumed.state.extra
     if algo == "moco":
         assert int(extra["queue"].ptr) == (8 * 16) % 40
-    else:
+    elif algo == "sela":
         assert straight.algorithm.sl_epochs == {0, 1}
         assert len(extra["self_label"].pseudo_labels.unique()) > 1
+    elif algo == "pirl":
+        assert torch.isfinite(extra["bank"].data).all()
+        assert (extra["bank"].data.norm(dim=1) > 0).all()
+    else:
+        labels = extra["pseudo_labels"].labels
+        assert labels.shape == (64,) and 0 <= labels.min() <= labels.max() < 4
 
 
 def test_dropped_trainer_frees_its_tensors(tmp_path, monkeypatch):

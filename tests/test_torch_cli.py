@@ -147,11 +147,15 @@ def test_no_card_raises_unless_cpu_asked_for(entry, tmp_path, monkeypatch):
 
 
 def test_unported_algorithm_and_arch_raise():
+    """Every algorithm of the JAX package is ported; the slice-C backbones
+    still raise."""
+    from ssv_tpu.train.registry import ALGORITHMS as JAX_ALGORITHMS
     from ssv_tpu_torch.models.registry import build_encoder
-    from ssv_tpu_torch.train.registry import build_algorithm
+    from ssv_tpu_torch.train.registry import ALGORITHMS, build_algorithm
 
-    with pytest.raises(NotImplementedError, match="slice B"):
-        build_algorithm("pirl", helpers.mini_config("pirl"), "resnet18", None, "cpu")
+    assert set(ALGORITHMS) == set(JAX_ALGORITHMS)
+    with pytest.raises(ValueError, match="Unknown algorithm"):
+        build_algorithm("nope", helpers.mini_config("simclr"), "resnet18", None, "cpu")
     with pytest.raises(NotImplementedError, match="slice C"):
         build_encoder("resnet50", {})
 
@@ -179,3 +183,54 @@ def test_port_imports_no_jax():
         src = open(path).read()
         assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax|orbax|ssv_tpu)\b",
                              src, re.M), m
+
+
+@pytest.mark.parametrize("algo,width", [("pirl", 128), ("deep_cluster", 512)])
+def test_cli_pirl_and_deep_cluster_train_then_inference_tasks(algo, width, tmp_path,
+                                                              monkeypatch):
+    """configs/pirl.yaml and configs/deep_cluster.yaml at their widths
+    (ResNet-18, 32x32 views, PIRL's four 16x16 patches; PIRL's 1,000
+    negatives cut to the 128-image split's reach), one epoch on the staged
+    fake CIFAR, batch 16, in the default bf16 autocast: `train` (PIRL's bank
+    filled at `pre_train`, DeepCluster's K-means of 300 x 10 at the epoch's
+    start, KNN, checkpoints, the probe), then `linear_eval -l` and
+    `get_features -l` with the config's `linear_eval.input_dim` features.
+    (Smaller patches are no cut here: on the CPU, bf16 autocast gives a
+    stride-2 convolution over a 1x1 map, which 8x8 patches reach, an
+    undefined weight gradient.)"""
+    stage_fake_cifar(str(tmp_path / "data"))
+    monkeypatch.chdir(tmp_path)
+    with open(os.path.join(REPO, "configs", f"{algo}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(epochs=1, eval_every=1)
+    if algo == "pirl":
+        cfg.update(num_negatives=100)
+    cfg["linear_eval"].update(epochs=2)
+    cfg["data"].update(batch_size=16, root=str(tmp_path / "data"))
+    path = tmp_path / f"{algo}.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    assert cfg["linear_eval"]["input_dim"] == width
+
+    def drive(*argv):
+        return cli.main(["-c", str(path), "-m", "resnet18", "-a", algo, "--device", "cpu",
+                         *argv])
+
+    trainer = drive("-t", "train", "-o", "run")
+    run = tmp_path / "outputs" / algo / "resnet18" / "run"
+    assert (run / "latest").is_file() and (run / "best_model").is_file()
+    losses = trainer.epoch_stats[0]["losses"]
+    assert len(losses) == 8 and np.isfinite(losses).all()
+    assert 0.0 <= trainer.linear_eval_stats["accuracy"] <= 1.0
+    extra = trainer.state.extra
+    if algo == "pirl":
+        assert torch.isfinite(extra["bank"].data).all() and extra["bank"].data.shape == (128, 128)
+    else:
+        assert 0 <= extra["pseudo_labels"].labels.min() <= extra["pseudo_labels"].labels.max() < 10
+    assert drive("-t", "linear_eval", "-o", "lin", "-l", str(run)).linear_eval_stats
+    drive("-t", "get_features", "-o", "feat", "-l", str(run))
+    feat = tmp_path / "outputs" / algo / "resnet18" / "feat"
+    for name, shape in [("train_fvecs", (128, width)), ("train_gt", (128,)),
+                        ("test_fvecs", (256, width)), ("test_gt", (256,))]:
+        assert np.load(feat / f"{name}.npy").shape == shape, name
+    np.testing.assert_allclose(np.linalg.norm(np.load(feat / "test_fvecs.npy"), axis=1),
+                               1.0, rtol=1e-5)

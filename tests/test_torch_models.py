@@ -129,3 +129,82 @@ def test_simclr_two_train_steps(fuse_views):
         tol = 1e-5 if k.endswith(("running_mean", "running_var")) else 1e-4
         np.testing.assert_allclose(got_sd[k].numpy(), w.numpy(), rtol=0, atol=tol,
                                    err_msg=k)
+
+
+def _dtype_pair(arch, cfg, monkeypatch):
+    """The JAX algorithm's encoder (from its `encoder_cfg`) and the port's
+    algorithm with the same weights; SimCLR on a two-stage ResNet, DINO on
+    a 2-layer ViT."""
+    from ssv_tpu.models.registry import build_encoder as jax_build_encoder
+    from ssv_tpu.train.registry import build_algorithm as jax_build_algorithm
+    from ssv_tpu_torch.convert import vit_state_dict
+    from ssv_tpu_torch.train.registry import build_algorithm
+    from torch_helpers import small_resnet18
+
+    small_resnet18(monkeypatch)
+    algo = "dino" if arch == "vit" else "simclr"
+    jalgo = jax_build_algorithm(algo, cfg, arch, JDataInfo(10, 64, 8, 8))
+    jnet, _ = jax_build_encoder(arch, jalgo.encoder_cfg())
+    x = np.random.RandomState(0).rand(4, 16, 16, 3).astype(np.float32)
+    params, bstats = init_module(jax.random.PRNGKey(0), jnet, jnp.asarray(x))
+    params, bstats = to_numpy_tree(params), to_numpy_tree(bstats)
+    talgo = build_algorithm(algo, cfg, arch, TDataInfo(10, 64, 8, 8), "cpu")
+    encoder = (talgo.student if arch == "vit" else talgo.model).encoder
+    encoder.load_state_dict(vit_state_dict(params) if arch == "vit"
+                            else resnet_state_dict(params, bstats, (1, 1)))
+    return jnet, params, bstats, talgo, encoder, x
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "vit"])
+def test_encoder_dtype_float32_runs_outside_autocast(arch, monkeypatch):
+    """`encoder: {dtype: float32}` without `compute_dtype`: the JAX encoder
+    computes in float32 while its heads stay bf16. The port's encoder, run
+    inside the algorithm's bf16 autocast, gives the JAX float32 features
+    within 1e-5 (bf16 would miss by about 1e-2), and the algorithm keeps
+    its bf16 autocast for the heads."""
+    cfg = helpers.mini_config("dino" if arch == "vit" else "simclr", batch_size=8)
+    cfg["encoder"] = {**cfg["encoder"], "dtype": "float32"}
+    if arch == "vit":
+        cfg["encoder"].update(num_global_patches=16, num_local_patches=4)
+    jnet, params, bstats, talgo, encoder, x = _dtype_pair(arch, cfg, monkeypatch)
+    assert talgo.autocast_dtype == torch.bfloat16
+    if arch == "vit":
+        want = jnet.apply({"params": params}, jnp.asarray(x), train=True)
+    else:
+        want, _ = apply_train(jnet, params, bstats, jnp.asarray(x))
+    encoder.train()
+    with talgo.autocast():
+        got = encoder(t(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_encoder_dtype_bfloat16_under_float32_compute(monkeypatch):
+    """`encoder: {dtype: bfloat16}` with `compute_dtype: float32`: the
+    encoder's convolutions run in bf16 though the algorithm has no autocast
+    (its heads stay float32), and the features come out float32."""
+    cfg = helpers.mini_config("simclr", batch_size=8)
+    cfg["compute_dtype"] = "float32"
+    cfg["encoder"] = {**cfg["encoder"], "dtype": "bfloat16"}
+    _, _, _, talgo, encoder, x = _dtype_pair("resnet18", cfg, monkeypatch)
+    assert talgo.autocast_dtype is None
+    seen = []
+    encoder.conv1.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+    head = []
+    talgo.model.proj.register_forward_pre_hook(
+        lambda m, i: head.append(torch.is_autocast_enabled("cpu")))
+    with talgo.autocast():
+        z = talgo.model(t(x))
+    assert seen == [torch.bfloat16] and head == [False]
+    assert z.dtype == torch.float32
+
+
+@pytest.mark.parametrize("key,value", [("dtype", "float16"), ("dtype", "bf16"),
+                                       ("param_dtype", "bfloat16")])
+@pytest.mark.parametrize("arch", ["resnet18", "vit"])
+def test_bad_encoder_dtype_raises(arch, key, value):
+    from ssv_tpu_torch.models.registry import build_encoder
+
+    cfg = helpers.mini_config("dino")["encoder"] if arch == "vit" else {}
+    with pytest.raises(ValueError, match=key):
+        build_encoder(arch, {**cfg, key: value})

@@ -60,7 +60,8 @@ def small_resnet18(monkeypatch):
 
 
 # each algorithm's towers: head -> layers followed by BatchNorm (SeLA's
-# model has cluster heads and no tower head)
+# model has cluster heads, PIRL's and DeepCluster's plain Dense layers, and
+# no tower head)
 TOWER_BN = {
     "simclr": ({"proj": (0, 1)}, None),
     "moco": ({"proj": ()}, {"proj": ()}),
@@ -71,6 +72,8 @@ TOWER_BN = {
     "swav": ({"proj": (0, 1)}, None),
     "sela": ({}, None),
     "dino": ({"proj": ()}, {"proj": ()}),
+    "pirl": ({}, None),
+    "deep_cluster": ({}, None),
 }
 
 
