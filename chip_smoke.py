@@ -10,11 +10,23 @@ shape (the photometric kernel at batch 512, 32x32: warm in L2 and cold by
 CUDA events, and by the profiler), beside the plain version and the least
 time the card needs for the work. Then one float32 SimCLR step at a tiny
 size on the card is held against the same step on the CPU, the path the
-tests hold against the JAX package.
+tests hold against the JAX package, on a two-stage BasicBlock ResNet, a
+two-stage Bottleneck ResNet with 4 groups of width 4, and the TinyEncoder.
 Phase 3 trains SimCLR ResNet-18 for one epoch at batch 512 on the full-size
 synthetic CIFAR-10 through `python -m ssv_tpu_torch.main`'s entry point,
 with KNN validation and the final linear probe, and checks that every train
 step went through the kernels.
+Phase 3b trains SimCLR ResNet-50 (`-m resnet50`) the same way, profiles 45
+more steps of the trained run (device ops a step, busy share), counts the
+model's FLOPs for the MFU, and runs `-t linear_eval -l` on its checkpoint.
+Phase 3c trains SimCLR for 10 steps each on ResNet-101, ResNet-152,
+ResNeXt-50 32x4d, ResNeXt-101 32x8d, Wide ResNet-50-2, Wide ResNet-101-2 and
+`tiny` through the Trainer.
+Phase 3d holds every transform op of slice C (Gaussian blur, random crop,
+resize to 24 and 40, cutout, RandAugment and each of its 14 branches) on a
+batch of 512 train images on the card against the CPU from the same draws,
+times each, and trains SimCLR ResNet-18 for 10 steps with a train view that
+runs them all.
 Phase 4 runs BYOL ResNet-18 from configs/byol.yaml (batch 512, cut to 2
 epochs) through the same entry point: interrupted after epoch 1 by an
 exception from a `pre_epoch` hook on the algorithm (so `train_safe` saves
@@ -36,9 +48,9 @@ Phase 9 trains SeLA ResNet-18 from configs/sela.yaml (batch 500, 10 heads of
 128 clusters, cut to 2 epochs) through the CLI, with its two self-labelling
 sweeps (`pre_train` and epoch 1), and checks that the pseudo-labels use more
 than one cluster.
-Phase 10 runs DINO on the ViT from configs/dino.yaml (hidden 384, 6 layers,
-batch 64 with 2+2 global 32x32 and 6+6 local 8x8 crops, adamw; cut to 2
-epochs) through the CLI, interrupted at epoch 2's start and resumed with
+Phase 10 runs DINO on the ViT from configs/dino.yaml (hidden 384, cut from
+6 layers to DINO_LAYERS, batch 64 with 2+2 global 32x32 and 6+6 local 8x8
+crops, adamw; cut to 2 epochs) through the CLI, interrupted at epoch 2's start and resumed with
 `-l` as phase 4 does; checks that the teacher after the epoch-1 EMA is
 lambda * (the teacher before) + (1 - lambda) * (the student), that the
 center moved from its randn draw, and that the probe took the 1,024-wide
@@ -62,8 +74,9 @@ Every training phase checks the photometric launches per train step (two,
 one for SeLA's single augmented view; DeepCluster builds and pays for the
 `aug_2` it never reads), prints its steady img/s and its peak
 memory above what it inherited, and checks that what each run inherits stays
-within 64 MiB of what the first run inherited. Any failure raises; the line
-before the last holds the kernels' numbers, the last line the JSON result.
+within 64 MiB of what the first run inherited. Each phase prints its
+seconds (`[time]`). Any failure raises; the line before the last holds the
+kernels' numbers, the last line the JSON result.
 """
 
 from __future__ import annotations
@@ -88,6 +101,7 @@ HELD_SLACK = 64 << 20   # bytes a run may inherit beyond what the first run did
 LAUNCHES_PER_STEP = {"simclr": 2, "byol": 2, "simsiam": 2, "relic": 2, "barlow": 2,
                      "moco": 2, "swav": 2, "sela": 1, "dino": 2, "pirl": 2,
                      "deep_cluster": 2}
+BF16_FLOPS = 989e12   # H100 SXM dense bf16 peak (NVIDIA data sheet, at 700 W)
 # the batches the paths give the kernel: 512 (SimCLR, BYOL, SimSiam, ReLIC,
 # Barlow, SwAV, DeepCluster), 256 (MoCo, PIRL), 500 (SeLA), 64 (DINO, whose
 # two base transforms run before the multi-crop); the first is the main path's
@@ -231,13 +245,19 @@ _DINO_SMALL = {
                 "num_attention_heads": 2, "patch_size": 4, "num_encoder_layers": 2,
                 "num_global_patches": 16, "num_local_patches": 4},
     "data": {"multicrop_config": {"global_size": [16, 16], "local_size": [8, 8]}}}
-SMALL_STEPS.update({"dino": _DINO_SMALL, "dino-resnet": _DINO_SMALL})
-SMALL_ARCH = {"dino": "vit"}
+SMALL_STEPS.update({"dino": _DINO_SMALL, "dino-resnet": _DINO_SMALL,
+                    "simclr-bottleneck": SMALL_STEPS["simclr"],
+                    "simclr-tiny": SMALL_STEPS["simclr"]})
+# `resnet50` stands for a two-stage Bottleneck ResNet with 4 groups of width
+# 4 (512 features) here
+SMALL_ARCH = {"dino": "vit", "simclr-bottleneck": "resnet50", "simclr-tiny": "tiny"}
 
 
 def phase_small_steps(names) -> None:
     """One float32 step of each algorithm with a two-stage ResNet (DINO's
-    `dino` case: a 2-layer ViT) at 16x16, batch 8 (DINO: 2+2 16x16 global
+    `dino` case: a 2-layer ViT; `simclr-bottleneck`: a two-stage Bottleneck
+    ResNet with 4 groups of width 4; `simclr-tiny`: the TinyEncoder) at
+    16x16, batch 8 (DINO: 2+2 16x16 global
     and 2+2 8x8 local crops of each), on the card and on the CPU from the
     same weights and views: the CPU path is the one the tests hold against
     the JAX package. The views are given, so no kernel launches here; so
@@ -249,7 +269,7 @@ def phase_small_steps(names) -> None:
     pseudo-labels and best head, DINO's center, PIRL's bank, DeepCluster's
     pseudo-labels) within 1e-4."""
     from ssv_tpu_torch.models import registry
-    from ssv_tpu_torch.models.resnet import BasicBlock, ResNet
+    from ssv_tpu_torch.models.resnet import BasicBlock, Bottleneck, ResNet
     from ssv_tpu_torch.train.base import DataInfo
     from ssv_tpu_torch.train.registry import build_algorithm
 
@@ -263,9 +283,12 @@ def phase_small_steps(names) -> None:
     bank = torch.nn.functional.normalize(torch.randn(64, 16, generator=g), dim=1)
     for k, size in (("global_1", 16), ("global_2", 16), ("local_1", 8), ("local_2", 8)):
         views[k] = torch.rand(8, 2, size, size, 3, generator=g)
-    resnet18 = registry.NETWORKS["resnet18"]
+    saved = {k: registry.NETWORKS[k] for k in ("resnet18", "resnet50")}
     registry.NETWORKS["resnet18"] = {
         "net": lambda **kw: ResNet(BasicBlock, (1, 1), **kw), "dim": 128}
+    registry.NETWORKS["resnet50"] = {
+        "net": lambda **kw: ResNet(Bottleneck, (1, 1), groups=4, width_per_group=4, **kw),
+        "dim": 512}
     try:
         for name in names:
             algo_name = name.split("-")[0]
@@ -305,7 +328,7 @@ def phase_small_steps(names) -> None:
             if not (rel <= 1e-5 and param_err <= 1e-4):
                 raise AssertionError(f"{name} step on the card disagrees with the CPU path")
     finally:
-        registry.NETWORKS["resnet18"] = resnet18
+        registry.NETWORKS.update(saved)
 
 
 def phase_probe_steps() -> None:
@@ -458,6 +481,231 @@ def phase_slice(card: str) -> dict:
     return {"launches": launches, "steps": steps, "knn_accuracy": acc,
             "img_per_s": stats["steady_img_per_s"], "peak_bytes": peak, "held_bytes": held,
             "linear_eval": probe}
+
+
+def _train_gflop_per_view(model, algorithm, batch: int = 8) -> tuple[float, float]:
+    """GFLOP a 32x32 view takes through `model` (a copy, in train mode, on
+    the card, in the algorithm's autocast), forward and forward plus
+    backward, as torch.utils.flop_counter counts the matmuls and
+    convolutions."""
+    import copy
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = copy.deepcopy(model).train()
+    x = torch.rand(batch, 32, 32, 3, device="cuda")
+    with FlopCounterMode(display=False) as fwd, algorithm.autocast():
+        model(x)
+    with FlopCounterMode(display=False) as both, algorithm.autocast():
+        model(x).float().sum().backward()
+    del model
+    return fwd.get_total_flops() / batch / 1e9, both.get_total_flops() / batch / 1e9
+
+
+def phase_resnet50(card: str) -> dict:
+    """The slice's path: SimCLR ResNet-50 from configs/simclr.yaml (batch
+    512) through the CLI for one epoch with KNN and the probe, then
+    `-t linear_eval -l` on its checkpoint. Prints the steady img/s, the MFU
+    against the bf16 peak from the model's FLOPs, the device ops a step and
+    the busy share (step_profile on the trained Trainer), the peak memory
+    above what the run inherits, and the probe's seconds."""
+    from ssv_tpu_torch import main as cli
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.tools.step_profile import profile_trainer
+    from ssv_tpu_torch.train.trainer import STEADY_AFTER
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["-c", _config(tmp, "simclr", epochs=1, eval_every=1), "-m", "resnet50",
+                "-a", "simclr"]
+        run = os.path.join(tmp, "run")
+        held = _held_before_run("simclr resnet50")
+        fused_photometric.launches = 0
+        trainer = cli.main([*argv, "-t", "train", "-o", run])
+        launches = fused_photometric.launches
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        stats = trainer.epoch_stats[-1]
+        steps = stats["steps"]
+        _check_launches("simclr", launches, steps)
+        losses = _check_losses("simclr resnet50", [stats])
+        fwd, both = _train_gflop_per_view(trainer.state.model, trainer.algorithm)
+        img_s = stats["steady_img_per_s"]
+        mfu = img_s * 2 * both * 1e9 / BF16_FLOPS
+        print(f"[resnet50] simclr resnet50 batch {trainer.pipeline.batch_size}: {steps} steps, "
+              f"loss first {losses[0]:.4f} last {losses[-1]:.4f}, KNN accuracy "
+              f"{trainer.best_metric:.4f}; {launches} photometric launches")
+        print(f"[resnet50] steady-state {img_s:.1f} img/s (steps {STEADY_AFTER + 1}-{steps}); "
+              f"the model {fwd:.4f} GFLOP forward and {both:.4f} forward plus backward a view "
+              f"(torch.utils.flop_counter), so MFU {mfu * 100:.2f} % of "
+              f"{BF16_FLOPS / 1e12:.0f} TFLOP/s; peak memory {_gib(peak)} above the "
+              f"{_gib(held)} held before | {card}")
+        probe = _check_probe("simclr resnet50", trainer, card)
+        profile = profile_trainer(trainer)
+        del trainer
+        lin_held = _held_before_run("simclr resnet50 -t linear_eval")
+        lin = cli.main([*argv, "-t", "linear_eval", "-o", os.path.join(tmp, "lin"), "-l", run])
+        lin_probe = _check_probe("simclr resnet50 -t linear_eval", lin, card)
+        del lin
+    return {"launches": launches, "steps": steps, "img_per_s": img_s, "mfu": mfu,
+            "gflop_per_view": [fwd, both], "peak_bytes": peak, "held_bytes": [held, lin_held],
+            "linear_eval": probe, "linear_eval_task": lin_probe,
+            "device_ops_per_step": profile["device_ops_per_step"],
+            "device_busy_share": profile["device_busy_share"]}
+
+
+# the rest of the Bottleneck family and the test backbone, 10 SimCLR steps each
+FAMILY_C = ("resnet101", "resnet152", "resnext50", "resnext101", "wide_resnet50",
+            "wide_resnet101", "tiny")
+
+
+def phase_bottleneck_family(card: str) -> dict:
+    """SimCLR from configs/simclr.yaml (batch 512) on each arch of FAMILY_C,
+    10 train steps each through the Trainer: img/s of steps 6-10, the
+    forward GFLOP a view, the peak memory above what each run inherits."""
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.train.trainer import STEADY_AFTER, Trainer
+
+    out = {}
+    for arch in FAMILY_C:
+        held = _held_before_run(arch)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer({"config": os.path.join(HERE, "configs", "simclr.yaml"),
+                               "algo": "simclr", "arch": arch, "task": "train",
+                               "output": os.path.join(tmp, "run")})
+            idx_mat = trainer.pipeline.epoch_indices(trainer.generator)[:10]
+            fused_photometric.launches = 0
+            state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
+            launches = fused_photometric.launches
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - held
+            fwd, _ = _train_gflop_per_view(state.model, trainer.algorithm)
+        losses = metrics["loss"].tolist()
+        _check_launches("simclr", launches, state.step)
+        if state.step != 10 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{arch}: {state.step} steps, losses {losses}")
+        print(f"[bottleneck] simclr {arch} batch {trainer.pipeline.batch_size}: 10 steps, loss "
+              f"first {losses[0]:.4f} last {losses[-1]:.4f}; {steady:.1f} img/s (steps "
+              f"{STEADY_AFTER + 1}-10), {fwd:.4f} GFLOP forward a view; peak memory "
+              f"{_gib(peak)} above the {_gib(held)} held before; {launches} photometric "
+              f"launches | {card}")
+        out[arch] = {"launches": launches, "steps": state.step, "img_per_s": steady,
+                     "peak_bytes": peak, "held_bytes": held, "gflop_forward": fwd}
+        del trainer, state, metrics, idx_mat
+    return out
+
+
+# the train view of the transform phase: the shipped pair and crop, then
+# every random op of the slice
+TRANSFORM_VIEW = {
+    "color_jitter": {"brightness": 0.4, "contrast": 0.4, "saturation": 0.4, "hue": 0.1,
+                     "apply_prob": 0.8},
+    "random_gray": {"p": 0.2},
+    "random_resized_crop": {"size": [32, 32], "scale": [0.2, 1.0]},
+    "random_flip": None,
+    "gaussian_blur": {"apply_prob": 0.5},
+    "rand_aug": {"n_aug": 2},
+    "cutout": {"n_cuts": 1, "max_len": 8},
+    "to_tensor": None,
+    "normalize": {"mean": [0.4914, 0.4822, 0.4465], "std": [0.247, 0.2435, 0.2616]},
+}
+EXACT_OPS = ("solarize", "posterize", "equalize")
+
+
+def _transform_cases(B: int, g: torch.Generator) -> tuple[dict, dict]:
+    """The slice's ops as functions of (images, draws), and their draws for B
+    images from the host generator `g`: each random op given its draws, each
+    of RandAugment's 14 branches at magnitudes from its range."""
+    from ssv_tpu_torch.data import augment as A
+
+    n_aug = 4
+    draws = {"sigma": 0.1 + 1.9 * torch.rand(B, generator=g),
+             "i": torch.randint(0, 9, (B,), generator=g),
+             "j": torch.randint(0, 9, (B,), generator=g),
+             "cut_len": torch.randint(1, 17, (B,), generator=g),
+             "xs": torch.randint(0, 33, (B, 1, 2), generator=g),
+             "choice": torch.randint(0, 14, (n_aug, B), generator=g),
+             "u": torch.rand(n_aug, B, generator=g),
+             "sign": torch.where(torch.rand(n_aug, B, generator=g) > 0.5, -1.0, 1.0)}
+    cases = {"gaussian_blur": lambda x, d: A.gaussian_blur_sigma(x, d["sigma"]),
+             "random_crop": lambda x, d: A.random_crop_at(x, d["i"], d["j"], 32, 4),
+             "resize_24": lambda x, d: A.resize(x, 24),
+             "resize_40": lambda x, d: A.resize(x, 40),
+             "cutout": lambda x, d: A.cutout_at(x, d["cut_len"], d["xs"], 1),
+             "rand_augment": lambda x, d: A.rand_augment_apply(x, d["choice"], d["u"],
+                                                               d["sign"])}
+    for c, (name, lo, hi, signed, fn) in enumerate(A.RANDAUG_OPS):
+        v = lo + (hi - lo) * torch.rand(B, generator=g)
+        draws[f"v{c}"] = v * torch.where(torch.rand(B, generator=g) > 0.5, -1.0, 1.0) \
+            if signed else v
+        cases[name] = lambda x, d, fn=fn, c=c: fn(x, d[f"v{c}"])
+    return cases, draws
+
+
+def phase_transforms(card: str) -> dict:
+    """Every op of the slice on a B = 512 batch of the train split, on the
+    card and on the CPU from the same draws: exact for solarize, posterize
+    and equalize, within 1e-5 for the rest; each timed in ms per batch by
+    CUDA events on the card (the random ops through their wrappers, which
+    draw on the card). Then 10 SimCLR ResNet-18 steps through the Trainer
+    with a train view that runs every random op of the slice after the
+    fused pair (20 photometric launches)."""
+    import yaml
+
+    from ssv_tpu_torch.data import augment as A
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.tools.measure import times_ms
+    from ssv_tpu_torch.train.trainer import STEADY_AFTER, Trainer
+
+    held = _held_before_run("transforms")
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(HERE, "configs", "simclr.yaml")) as f:
+            cfg = yaml.safe_load(f)
+        cfg["data"]["transforms"]["train"] = TRANSFORM_VIEW
+        path = os.path.join(tmp, "simclr.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f, sort_keys=False)
+        trainer = Trainer({"config": path, "algo": "simclr", "arch": "resnet18",
+                           "task": "train", "output": os.path.join(tmp, "run")})
+        images, _ = trainer.pipeline.arrays("train")
+        x = A.to_float(images[:512])
+        cases, draws = _transform_cases(512, torch.Generator().manual_seed(0))
+        gd = {k: v.cuda() for k, v in draws.items()}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        wrappers = {"gaussian_blur": lambda: A.gaussian_blur(gen, x),
+                    "random_crop": lambda: A.random_crop(gen, x, 32, 4),
+                    "cutout": lambda: A.cutout(gen, x, 1, 16),
+                    "rand_augment": lambda: A.rand_augment(gen, x, 4)}
+        ops = {}
+        for name, fn in cases.items():
+            got = fn(x, gd)
+            want = fn(x.cpu(), draws)
+            err = (got.cpu() - want).abs().max().item()
+            exact = name in EXACT_OPS
+            if not torch.isfinite(got).all() or err > (0.0 if exact else 1e-5):
+                raise AssertionError(f"transform {name}: card against CPU max |diff| {err}")
+            ms = statistics.median(times_ms(wrappers.get(name, lambda fn=fn: fn(x, gd))))
+            ops[name] = {"max_abs_err": err, "ms": ms, "shape": list(got.shape)}
+            print(f"[transforms] {name} B=512 {tuple(x.shape[1:3])} -> {tuple(got.shape[1:3])}: "
+                  f"card against CPU max |diff| {err:.3e} ({'exact' if exact else 'tol 1e-5'}); "
+                  f"{ms:.4f} ms a batch (CUDA events, median) | {card}")
+        del x, gd
+        idx_mat = trainer.pipeline.epoch_indices(trainer.generator)[:10]
+        fused_photometric.launches = 0
+        state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
+        launches = fused_photometric.launches
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        losses = metrics["loss"].tolist()
+        _check_launches("simclr", launches, state.step)
+        if state.step != 10 or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"transforms: {state.step} steps, losses {losses}")
+        print(f"[transforms] simclr resnet18 batch {trainer.pipeline.batch_size} with "
+              f"{', '.join(TRANSFORM_VIEW)}: 10 steps, loss first {losses[0]:.4f} last "
+              f"{losses[-1]:.4f}; {steady:.1f} img/s (steps {STEADY_AFTER + 1}-10), peak "
+              f"memory {_gib(peak)} above the {_gib(held)} held before; {launches} "
+              f"photometric launches | {card}")
+        del trainer, state, metrics, idx_mat
+    return {"launches": launches, "img_per_s": steady, "peak_bytes": peak, "ops": ops}
 
 
 class Interrupt(Exception):
@@ -771,11 +1019,17 @@ def phase_sela(card: str) -> dict:
             "best_head": best_head, "linear_eval": probe}
 
 
+# DINO's ViT runs DINO_LAYERS of configs/dino.yaml's 6 layers here, at its
+# widths: its 1,562 steps are the longest phase, and host-bound by their
+# ops, which go with the depth
+DINO_LAYERS = 3
+
+
 def phase_dino(card: str) -> dict:
     """DINO on the ViT from configs/dino.yaml at its widths (hidden 384, 6
-    layers, 6 heads, head 512 -> 1,024; batch 64, 2+2 global 32x32 and 6+6
-    local 8x8 crops; adamw with the clamp and the decay ramp), cut to 2
-    epochs, interrupted and resumed through the CLI. At the stop, the
+    heads, head 512 -> 1,024; batch 64, 2+2 global 32x32 and 6+6 local 8x8
+    crops; adamw with the clamp and the decay ramp), cut to DINO_LAYERS
+    layers and 2 epochs, interrupted and resumed through the CLI. At the stop, the
     teacher after epoch 1's EMA is lambda * (the teacher at epoch 1's start,
     which no step moves) + (1 - lambda) * (the student), lambda =
     cosine_ramp(1, epochs, 0.996, 1.0), to 1e-6; after the resume the
@@ -801,9 +1055,13 @@ def phase_dino(card: str) -> dict:
             gap0 = math.sqrt(sum(float(((b - s) ** 2).sum()) for b, s in zip(before, student)))
         return {"lambda": lbd, "max_abs_err": err, "gap_ratio": gap / gap0}
 
+    import yaml
+
+    with open(os.path.join(HERE, "configs", "dino.yaml")) as f:
+        encoder = {**yaml.safe_load(f)["encoder"], "num_encoder_layers": DINO_LAYERS}
     with tempfile.TemporaryDirectory() as tmp:
         out = _interrupted_and_resumed("dino", tmp, card, arch="vit", target="teacher",
-                                       at_start=center, at_stop=ema_error)
+                                       at_start=center, at_stop=ema_error, encoder=encoder)
         resumed = out.pop("resumed")
         del out["argv"], out["run"]
         c0 = out.pop("at_start")
@@ -949,25 +1207,35 @@ def phase_deep_cluster(card: str) -> dict:
     return out
 
 
+def _timed(name: str, fn, *args):
+    """fn(*args), its seconds printed under `name`."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     card = phase_env()
-    phase_build()
-    kernels = phase_kernels(card)
-    phase_small_steps(["simclr"])
-    paths = {"simclr": phase_slice(card)["launches"],
-             "byol": phase_byol(card)["launches"]}
-    paths.update({k: v["launches"] for k, v in phase_family(card).items()})
-    phase_small_steps(["byol", "simsiam", "simsiam-frozen", "relic", "barlow",
-                       "moco", "swav", "sela", "dino", "dino-resnet", "pirl",
-                       "deep_cluster"])
-    phase_probe_steps()
-    paths["moco"] = phase_moco(card)["launches"]
-    paths["swav"] = phase_swav(card)["launches"]
-    paths["sela"] = phase_sela(card)["launches"]
-    paths["dino"] = phase_dino(card)["launches"]
-    paths["pirl"] = phase_pirl(card)["launches"]
-    paths["deep_cluster"] = phase_deep_cluster(card)["launches"]
+    _timed("build", phase_build)
+    kernels = _timed("kernels", phase_kernels, card)
+    _timed("small steps", phase_small_steps, ["simclr", "simclr-bottleneck", "simclr-tiny"])
+    paths = {"simclr": _timed("simclr", phase_slice, card)["launches"],
+             "simclr-resnet50": _timed("resnet50", phase_resnet50, card)["launches"]}
+    paths.update({f"simclr-{k}": v["launches"] for k, v in
+                  _timed("bottleneck family", phase_bottleneck_family, card).items()})
+    paths["transforms"] = _timed("transforms", phase_transforms, card)["launches"]
+    paths["byol"] = _timed("byol", phase_byol, card)["launches"]
+    paths.update({k: v["launches"] for k, v in _timed("family", phase_family, card).items()})
+    _timed("small steps", phase_small_steps,
+           ["byol", "simsiam", "simsiam-frozen", "relic", "barlow", "moco", "swav", "sela",
+            "dino", "dino-resnet", "pirl", "deep_cluster"])
+    _timed("probe steps", phase_probe_steps)
+    for name, phase in (("moco", phase_moco), ("swav", phase_swav), ("sela", phase_sela),
+                        ("dino", phase_dino), ("pirl", phase_pirl),
+                        ("deep_cluster", phase_deep_cluster)):
+        paths[name] = _timed(name, phase, card)["launches"]
     _held_before_run("the end")
     print(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s | {card}")
     kernels[0]["launches"] = sum(paths.values())

@@ -8,10 +8,13 @@ names:
 
   * Conv kernels go from HWIO to OIHW; Dense kernels are transposed;
   * BN `scale`/`bias`/`mean`/`var` -> `weight`/`bias`/`running_mean`/`running_var`;
-  * flax auto-names map to the port's names: `Conv_0`/`BatchNorm_0` of the
-    ResNet -> `conv1`/`bn1`; `BasicBlock_<k>` -> `layer<s>.<b>` (k counts
-    blocks across stages); in a block `Conv_0`, `Conv_1`, `Conv_2` ->
-    `conv1`, `conv2`, `downsample.0` and `BatchNorm_<n>` likewise;
+  * flax auto-names map to the port's names: `Conv_<i>`/`BatchNorm_<i>` of
+    the ResNet (its stem, i = 0) or the `TinyEncoder` (i = 0, 1; kernel and
+    bias) -> `conv<i+1>`/`bn<i+1>`; `BasicBlock_<k>` or `Bottleneck_<k>` ->
+    `layer<s>.<b>` (k counts blocks across stages); in a block of n convs
+    (2 or 3) `Conv_<i>` -> `conv<i+1>` for i < n and `Conv_<n>` ->
+    `downsample.0`, and `BatchNorm_<i>` likewise (grouped kernels take the
+    same HWIO -> OIHW permute);
     `Dense_<i>` -> `fc.<i>`, and the head's n-th BatchNorm -> `bn.<i>` of
     the n-th layer in that head's `bn_after`;
   * the ViT: `cls_embedding` and both position tables as they are,
@@ -48,8 +51,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-_BLOCK_CONV = {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "downsample.0"}
-_BLOCK_BN = {"BatchNorm_0": "bn1", "BatchNorm_1": "bn2", "BatchNorm_2": "downsample.1"}
+_BLOCK_CONVS = {"BasicBlock": 2, "Bottleneck": 3}
 
 
 def _t(a) -> torch.Tensor:
@@ -65,6 +67,8 @@ def _bn(out: dict, prefix: str, params: dict, stats: dict):
 
 def _conv(out: dict, prefix: str, params: dict):
     out[f"{prefix}.weight"] = _t(params["kernel"]).permute(3, 2, 0, 1).contiguous()
+    if "bias" in params:
+        out[f"{prefix}.bias"] = _t(params["bias"])
 
 
 def _dense(out: dict, prefix: str, params: dict):
@@ -80,24 +84,30 @@ def _layer_norm(out: dict, prefix: str, params: dict):
 
 def resnet_state_dict(params: dict, batch_stats: dict, stage_sizes: Sequence[int],
                       prefix: str = "") -> dict:
-    """flax ResNet variables -> port ResNet state_dict entries."""
+    """flax ResNet (BasicBlock or Bottleneck, by the block names) or
+    TinyEncoder variables -> port state_dict entries."""
     out: dict = {}
     blocks = [(s, b) for s, n in enumerate(stage_sizes) for b in range(n)]
     for name, sub in params.items():
-        if name == "Conv_0":
-            _conv(out, f"{prefix}conv1", sub)
-        elif name == "BatchNorm_0":
-            _bn(out, f"{prefix}bn1", sub, batch_stats[name])
-        elif name.startswith("BasicBlock_"):
-            s, b = blocks[int(name.split("_")[1])]
+        kind, _, idx = name.rpartition("_")
+        if kind == "Conv":
+            _conv(out, f"{prefix}conv{int(idx) + 1}", sub)
+        elif kind == "BatchNorm":
+            _bn(out, f"{prefix}bn{int(idx) + 1}", sub, batch_stats[name])
+        elif kind in _BLOCK_CONVS:
+            s, b = blocks[int(idx)]
             base = f"{prefix}layer{s + 1}.{b}."
+            n = _BLOCK_CONVS[kind]
             for inner, p in sub.items():
-                if inner in _BLOCK_CONV:
-                    _conv(out, base + _BLOCK_CONV[inner], p)
-                elif inner in _BLOCK_BN:
-                    _bn(out, base + _BLOCK_BN[inner], p, batch_stats[name][inner])
-                else:
+                layer, _, i = inner.rpartition("_")
+                if layer not in ("Conv", "BatchNorm"):
                     raise KeyError(f"unexpected flax block variable {name}/{inner}")
+                i = int(i)
+                if layer == "Conv":
+                    _conv(out, base + (f"conv{i + 1}" if i < n else "downsample.0"), p)
+                else:
+                    _bn(out, base + (f"bn{i + 1}" if i < n else "downsample.1"), p,
+                        batch_stats[name][inner])
         else:
             raise KeyError(f"unexpected flax ResNet variable {name}")
     return out

@@ -1,7 +1,10 @@
 """ResNet backbones in PyTorch (port of ssv_tpu/models/resnet.py).
 
-BasicBlock ResNets with the `reduce_bottom_conv` CIFAR stem (3x3/s1 instead
-of 7x7/s2), kaiming fan-out normal init and optional zero-init residual.
+BasicBlock and Bottleneck ResNets, ResNeXt (a grouped 3x3 in the
+Bottleneck) and Wide ResNets (a wider Bottleneck), with the
+`reduce_bottom_conv` CIFAR stem (3x3/s1 instead of 7x7/s2), kaiming
+fan-out normal init and optional zero-init residual (the last BN of each
+block starts at 0).
 The public forward takes the JAX package's NHWC layout and returns pooled,
 flattened float32 features with no classifier head. Inside, an NHWC tensor
 is viewed as channels-last NCHW (`permute`, no copy) for cuDNN.
@@ -51,25 +54,33 @@ class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
 
-def _conv(in_planes, planes, kernel, stride=1, padding=0):
+def _conv(in_planes, planes, kernel, stride=1, padding=0, groups=1):
     return nn.Conv2d(in_planes, planes, kernel, stride=stride, padding=padding,
-                     bias=False)
+                     groups=groups, bias=False)
+
+
+def _downsample(in_planes, planes, stride):
+    """The shortcut's strided 1x1 conv and BN (flax's `SAME` padding of a
+    1x1 conv is none)."""
+    return nn.Sequential(_conv(in_planes, planes, 1, stride), BatchNorm2d(planes))
 
 
 class BasicBlock(nn.Module):
     expansion = 1
+    last_bn = "bn2"   # zeroed by zero_init_residual
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, groups: int = 1, base_width: int = 64):
         super().__init__()
+        if groups != 1 or base_width != 64:
+            raise ValueError("BasicBlock only supports groups=1, base_width=64")
         self.conv1 = _conv(in_planes, planes, 3, stride, 1)
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv(planes, planes, 3, 1, 1)
         self.bn2 = BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
-        self.downsample = (nn.Sequential(
-            _conv(in_planes, planes * self.expansion, 1, stride),
-            BatchNorm2d(planes * self.expansion)) if downsample else None)
+        self.downsample = (_downsample(in_planes, planes * self.expansion, stride)
+                           if downsample else None)
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -78,12 +89,42 @@ class BasicBlock(nn.Module):
         return self.relu(y + identity)
 
 
-class ResNet(nn.Module):
-    """Feature extractor: (B, H, W, 3) -> (B, 64 * 2**(stages-1) * expansion)."""
+class Bottleneck(nn.Module):
+    """1x1 conv to `width` -> 3x3 conv (the stride and the groups here) ->
+    1x1 conv to planes * 4, each followed by BN, ReLU after the first two
+    and after the residual sum."""
+    expansion = 4
+    last_bn = "bn3"
 
-    def __init__(self, block: type, stage_sizes: Sequence[int],
-                 reduce_bottom_conv: bool = False, zero_init_residual: bool = False,
-                 dtype: torch.dtype | None = None):
+    def __init__(self, in_planes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, groups: int = 1, base_width: int = 64):
+        super().__init__()
+        width = int(planes * base_width / 64) * groups
+        self.conv1 = _conv(in_planes, width, 1)
+        self.bn1 = BatchNorm2d(width)
+        self.conv2 = _conv(width, width, 3, stride, 1, groups)
+        self.bn2 = BatchNorm2d(width)
+        self.conv3 = _conv(width, planes * self.expansion, 1)
+        self.bn3 = BatchNorm2d(planes * self.expansion)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = (_downsample(in_planes, planes * self.expansion, stride)
+                           if downsample else None)
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        return self.relu(y + identity)
+
+
+class ResNet(nn.Module):
+    """Feature extractor: (B, H, W, 3) -> (B, 64 * 2**(stages-1) * expansion),
+    (B, 512) for BasicBlock and (B, 2048) for Bottleneck at four stages."""
+
+    def __init__(self, block: type, stage_sizes: Sequence[int], groups: int = 1,
+                 width_per_group: int = 64, reduce_bottom_conv: bool = False,
+                 zero_init_residual: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         if reduce_bottom_conv:
@@ -100,7 +141,8 @@ class ResNet(nn.Module):
             for b in range(n_blocks):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 downsample = stride != 1 or in_planes != planes * block.expansion
-                blocks.append(block(in_planes, planes, stride, downsample))
+                blocks.append(block(in_planes, planes, stride, downsample, groups,
+                                    width_per_group))
                 in_planes = planes * block.expansion
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
         self.num_stages = len(stage_sizes)
@@ -133,13 +175,22 @@ class ResNet(nn.Module):
                 nn.init.zeros_(m.bias)
         if self.zero_init_residual:
             for m in self.modules():
-                if isinstance(m, BasicBlock):
-                    nn.init.zeros_(m.bn2.weight)
+                if isinstance(m, (BasicBlock, Bottleneck)):
+                    nn.init.zeros_(getattr(m, m.last_bn).weight)
 
 
-def resnet18(**kwargs) -> ResNet:
-    return ResNet(BasicBlock, (2, 2, 2, 2), **kwargs)
+def _factory(block, stages, **defaults):
+    def make(**kwargs) -> ResNet:
+        return ResNet(block, stages, **{**defaults, **kwargs})
+    return make
 
 
-def resnet34(**kwargs) -> ResNet:
-    return ResNet(BasicBlock, (3, 4, 6, 3), **kwargs)
+resnet18 = _factory(BasicBlock, (2, 2, 2, 2))
+resnet34 = _factory(BasicBlock, (3, 4, 6, 3))
+resnet50 = _factory(Bottleneck, (3, 4, 6, 3))
+resnet101 = _factory(Bottleneck, (3, 4, 23, 3))
+resnet152 = _factory(Bottleneck, (3, 8, 36, 3))
+resnext50_32x4d = _factory(Bottleneck, (3, 4, 6, 3), groups=32, width_per_group=4)
+resnext101_32x8d = _factory(Bottleneck, (3, 4, 23, 3), groups=32, width_per_group=8)
+wide_resnet50_2 = _factory(Bottleneck, (3, 4, 6, 3), width_per_group=128)
+wide_resnet101_2 = _factory(Bottleneck, (3, 4, 23, 3), width_per_group=128)

@@ -69,50 +69,59 @@ def device_ops(events) -> list:
 
 def profile_steps(config: str, arch: str, algo: str, warmup: int = 10, steps: int = 30,
                   profiled: int = 5, top: int = 15) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-
     from ..train.trainer import Trainer
 
     if not torch.cuda.is_available():
         raise RuntimeError("step_profile measures on a CUDA card; none found")
-    card = card_line()
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer({"config": config, "algo": algo, "arch": arch, "task": "train",
                            "output": os.path.join(tmp, "run")})
-        idx = trainer.pipeline.epoch_indices(trainer.generator)
-        need = warmup + 2 * steps + profiled
-        if idx.shape[0] < need:
-            raise ValueError(f"an epoch has {idx.shape[0]} steps, {need} are needed")
-        images, labels = trainer.pipeline.arrays("train")
-        state = trainer.state
+        result = profile_trainer(trainer, warmup, steps, profiled, top)
+        del trainer
+    return result
 
-        def batch(s):
-            return trainer._batch_fn(images, labels, idx[s], trainer.generator)
 
-        def step(s):
-            nonlocal state
-            state, _ = trainer.algorithm.train_step(state, batch(s), trainer.generator)
+def profile_trainer(trainer, warmup: int = 10, steps: int = 30, profiled: int = 5,
+                    top: int = 15) -> dict:
+    """The measurements above on a built `Trainer` (its state trains on)."""
+    from torch.profiler import ProfilerActivity, profile
 
-        def host_ms(fn, first):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for s in range(first, first + steps):
-                fn(s)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / steps * 1e3
+    card = card_line()
+    algo, arch = trainer.args["algo"], trainer.args["arch"]
+    idx = trainer.pipeline.epoch_indices(trainer.generator)
+    need = warmup + 2 * steps + profiled
+    if idx.shape[0] < need:
+        raise ValueError(f"an epoch has {idx.shape[0]} steps, {need} are needed")
+    images, labels = trainer.pipeline.arrays("train")
+    state = trainer.state
 
-        for s in range(warmup):
+    def batch(s):
+        return trainer._batch_fn(images, labels, idx[s], trainer.generator)
+
+    def step(s):
+        nonlocal state
+        state, _ = trainer.algorithm.train_step(state, batch(s), trainer.generator)
+
+    def host_ms(fn, first):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(first, first + steps):
+            fn(s)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    for s in range(warmup):
+        step(s)
+    step_ms = host_ms(step, warmup)
+    batch_ms = host_ms(batch, warmup + steps)
+    first = warmup + 2 * steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for s in range(first, first + profiled):
             step(s)
-        step_ms = host_ms(step, warmup)
-        batch_ms = host_ms(batch, warmup + steps)
-        first = warmup + 2 * steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for s in range(first, first + profiled):
-                step(s)
-            torch.cuda.synchronize()
-        ops = device_ops(prof.events())
-        batch_size = trainer.pipeline.batch_size
-        del trainer, state
+        torch.cuda.synchronize()
+    ops = device_ops(prof.events())
+    batch_size = trainer.pipeline.batch_size
+    del state
     by_name: dict[str, float] = {}
     for e in ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)

@@ -115,9 +115,14 @@ def test_train_batch_transform_runs_fused_pair():
 
 
 def test_unported_ops_raise():
+    """No op is left unported: TRANSFORM_OPS has every key of the JAX
+    package's, with the same (needs a generator/key, shape-preserving)
+    flags, and each builds; an unknown name still raises."""
+    assert {k: v[1:] for k, v in T.TRANSFORM_OPS.items()} == \
+        {k: v[1:] for k, v in J.TRANSFORM_OPS.items()}
+    assert not hasattr(T, "NOT_PORTED")
     cfg = copy.deepcopy(helpers.test_t())
     cfg["gaussian_blur"] = None
-    with pytest.raises(NotImplementedError, match="slice C"):
-        T.build_transform(cfg)
+    assert T.build_transform(cfg)(torch.Generator(), t(U8)).shape == (8, 32, 32, 3)
     with pytest.raises(ValueError):
         T.build_transform({"no_such_op": None})

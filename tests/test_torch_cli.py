@@ -147,17 +147,23 @@ def test_no_card_raises_unless_cpu_asked_for(entry, tmp_path, monkeypatch):
 
 
 def test_unported_algorithm_and_arch_raise():
-    """Every algorithm of the JAX package is ported; the slice-C backbones
-    still raise."""
+    """Every algorithm and every arch of the JAX package is ported, with the
+    same feature widths, and the CLI offers the same archs as main.py (not
+    the test backbone `tiny`); an unknown name still raises."""
+    from ssv_tpu.models.registry import NETWORKS as JAX_NETWORKS
     from ssv_tpu.train.registry import ALGORITHMS as JAX_ALGORITHMS
-    from ssv_tpu_torch.models.registry import build_encoder
+    from ssv_tpu_torch.models import registry
     from ssv_tpu_torch.train.registry import ALGORITHMS, build_algorithm
 
     assert set(ALGORITHMS) == set(JAX_ALGORITHMS)
+    assert {k: v["dim"] for k, v in registry.NETWORKS.items()} == \
+        {k: v["dim"] for k, v in JAX_NETWORKS.items()}
+    assert not hasattr(registry, "NOT_PORTED")
+    assert set(cli.NETWORKS) == set(registry.NETWORKS) - {"tiny"}
     with pytest.raises(ValueError, match="Unknown algorithm"):
         build_algorithm("nope", helpers.mini_config("simclr"), "resnet18", None, "cpu")
-    with pytest.raises(NotImplementedError, match="slice C"):
-        build_encoder("resnet50", {})
+    with pytest.raises(ValueError, match="Unknown arch"):
+        registry.build_encoder("resnet200", {})
 
 
 def test_port_imports_no_jax():

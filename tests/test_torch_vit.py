@@ -23,7 +23,7 @@ from ssv_tpu_torch.data import augment as T
 from ssv_tpu_torch.data.multicrop import MultiCrop
 from ssv_tpu_torch.models import heads as TH
 from ssv_tpu_torch.models.registry import build_encoder
-from torch_helpers import t, to_numpy_tree
+from torch_helpers import strict_jit, t, to_numpy_tree
 
 torch.set_num_threads(2)
 
@@ -216,14 +216,6 @@ def test_vit_rejects_other_patch_counts_and_inits_like_flax():
 # bf16: where the dtype changes
 # --------------------------------------------------------------------------
 
-def _strict_jit(fn, *args):
-    """`fn(*args)` compiled with XLA's excess precision off, so each bf16 op
-    of a flax module rounds where its dtype says (XLA on the CPU otherwise
-    keeps float32 between the ops it fuses, which no port can follow)."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_allow_excess_precision": False})(*args)
-
-
 def _float32_gelu(x, approximate=True):
     """flax's GELU evaluated in float32 and rounded once, as torch's bf16
     GELU is: flax's own evaluates erf in bf16 steps with 1/sqrt(2) rounded
@@ -253,7 +245,7 @@ def bf16_vit_gaps(cfg):
     gaps = {}
     for size in (16, 8):
         x = np.random.RandomState(size).rand(8, size, size, 3).astype(np.float32)
-        want, want_attn = _strict_jit(
+        want, want_attn = strict_jit(
             lambda p, xx: jnet.apply({"params": p}, xx, return_attn=True), params, jnp.asarray(x))
         with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
             got, attn = net(t(x), return_attn=True)
@@ -292,7 +284,7 @@ def bf16_dino_head_gap():
     jm, tm = JH.DinoHead(64, 128, dtype=jnp.bfloat16), TH.DinoHead(32, 64, 128)
     params = _perturbed(to_numpy_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]))
     tm.load_state_dict(dino_head_state_dict(params))
-    want = _strict_jit(lambda p, xx: jm.apply({"params": p}, xx), params, jnp.asarray(x))
+    want = strict_jit(lambda p, xx: jm.apply({"params": p}, xx), params, jnp.asarray(x))
     with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
         got = tm(t(x))
     assert got.dtype == torch.float32

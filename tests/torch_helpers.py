@@ -44,19 +44,32 @@ def t(a, dtype=None):
 SMALL_STAGES = (1, 1)   # a two-stage ResNet: 128 features
 
 
-def small_resnet18(monkeypatch):
-    """Makes `resnet18` a two-stage ResNet in both packages' registries, so
-    an algorithm builds at test size through its usual constructor."""
+def small_resnet18(monkeypatch, arch="resnet18"):
+    """Makes `arch` (`resnet18`, or `resnet50`) a two-stage ResNet of its
+    block (BasicBlock: 128 features; Bottleneck: 512) in both packages'
+    registries, so an algorithm builds at test size through its usual
+    constructor."""
     from ssv_tpu.models import registry as jax_registry
     from ssv_tpu.models import resnet as JR
     from ssv_tpu_torch.models import registry as torch_registry
     from ssv_tpu_torch.models import resnet as TR
 
-    monkeypatch.setitem(jax_registry.NETWORKS, "resnet18", {
-        "net": lambda **kw: JR.ResNet(block=JR.BasicBlock, stage_sizes=SMALL_STAGES, **kw),
-        "dim": 128})
-    monkeypatch.setitem(torch_registry.NETWORKS, "resnet18", {
-        "net": lambda **kw: TR.ResNet(TR.BasicBlock, SMALL_STAGES, **kw), "dim": 128})
+    block = {"resnet18": "BasicBlock", "resnet50": "Bottleneck"}[arch]
+    jblock, tblock = getattr(JR, block), getattr(TR, block)
+    dim = 128 * tblock.expansion
+    monkeypatch.setitem(jax_registry.NETWORKS, arch, {
+        "net": lambda **kw: JR.ResNet(block=jblock, stage_sizes=SMALL_STAGES, **kw),
+        "dim": dim})
+    monkeypatch.setitem(torch_registry.NETWORKS, arch, {
+        "net": lambda **kw: TR.ResNet(tblock, SMALL_STAGES, **kw), "dim": dim})
+
+
+def strict_jit(fn, *args):
+    """`fn(*args)` compiled with XLA's excess precision off, so each bf16 op
+    of a flax module rounds where its dtype says (XLA on the CPU otherwise
+    keeps float32 between the ops it fuses, which no port can follow)."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
 
 
 # each algorithm's towers: head -> layers followed by BatchNorm (SeLA's
