@@ -70,6 +70,18 @@ stop, and cover every train index with values in [0, 10); it prints the
 seconds of `map_train`, K-means and the Hungarian step of each epoch.
 Phase 6 also holds a float32 PIRL step (JAX-free fixed draws) and a
 DeepCluster step on the card against the CPU.
+Phase 13 (`ddp`) trains across ranks: (a) SimCLR ResNet-18 as phase 3,
+through `torchrun --standalone --nproc_per_node 1 -m ssv_tpu_torch.main`
+(NCCL), its per-step losses against phase 3's, its img/s beside phase 3's,
+2 launches a step; (b) two ranks sharing the card over gloo (NCCL refuses
+two ranks on one device), spawned: every collective of the slice on CUDA
+tensors, two float32 steps of full-width SimCLR ResNet-18 on given views
+against the one-process step (params 1e-4, BN statistics 1e-5), and 10
+bf16 steps of the Trainer at global batch 512 with sync BN and then with
+`per_device_bn` (finite losses, the ranks' states bit for bit the same, 2
+launches a step at B = 256 on each rank); then the photometric wrapper on a
+tensor of a device that is not the current one, where a second device
+exists (it says so where none does).
 Every training phase checks the photometric launches per train step (two,
 one for SeLA's single augmented view; DeepCluster builds and pays for the
 `aug_2` it never reads), prints its steady img/s and its peak
@@ -480,7 +492,7 @@ def phase_slice(card: str) -> dict:
     probe = _check_probe("simclr", trainer, card)
     return {"launches": launches, "steps": steps, "knn_accuracy": acc,
             "img_per_s": stats["steady_img_per_s"], "peak_bytes": peak, "held_bytes": held,
-            "linear_eval": probe}
+            "linear_eval": probe, "losses": losses}
 
 
 def _train_gflop_per_view(model, algorithm, batch: int = 8) -> tuple[float, float]:
@@ -1022,7 +1034,7 @@ def phase_sela(card: str) -> dict:
 # DINO's ViT runs DINO_LAYERS of configs/dino.yaml's 6 layers here, at its
 # widths: its 1,562 steps are the longest phase, and host-bound by their
 # ops, which go with the depth
-DINO_LAYERS = 3
+DINO_LAYERS = 2
 
 
 def phase_dino(card: str) -> dict:
@@ -1207,6 +1219,260 @@ def phase_deep_cluster(card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# data-parallel training across ranks
+# ----------------------------------------------------------------------
+DDP_TIMEOUT_S = 300     # each launch's limit, and each collective's wait
+DDP_STEPS = 10          # bf16 steps of part (b), each mode
+DDP_F32_BATCH = 128     # global batch of part (b)'s float32 steps
+
+
+def _simclr_f32(device):
+    """SimCLR ResNet-18 at full width from configs/simclr.yaml in float32,
+    its state from the seed-0 host generator, and the given views of its
+    two steps (a numpy seed; no draws differ between runs)."""
+    import numpy as np
+    import yaml
+
+    from ssv_tpu_torch.train.base import DataInfo
+    from ssv_tpu_torch.train.registry import build_algorithm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(HERE, "configs", "simclr.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["compute_dtype"] = "float32"
+    b = DDP_F32_BATCH
+    algo = build_algorithm("simclr", cfg, "resnet18", DataInfo(10, 50000, b, 50000 // b), device)
+    state = algo.init_state(torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(0)
+    views = [{k: torch.from_numpy(rs.randn(b, 32, 32, 3).astype(np.float32))
+              for k in ("aug_1", "aug_2")} for _ in range(2)]
+    return algo, state, views
+
+
+def _ddp_collectives(device) -> dict:
+    """Each collective the slice uses, on CUDA tensors, held to its value."""
+    from ssv_tpu_torch.parallel import mesh, per_device
+
+    w, r = mesh.world_size(), mesh.rank()
+    checks = {}
+
+    def check(name, fn):
+        try:
+            checks[name] = "ok" if fn() else "wrong value"
+        except RuntimeError as err:   # a collective the backend does not carry
+            checks[name] = f"{type(err).__name__}: {str(err).splitlines()[0][:160]}"
+
+    def all_reduce():
+        t = per_device.all_reduce_sum(torch.full((3,), r + 1.0, device=device))
+        return torch.equal(t.cpu(), torch.full((3,), w * (w + 1) / 2))
+
+    def gather_and_backward():
+        x = torch.full((2, 3), float(r), device=device, requires_grad=True)
+        g = per_device.pgather(x)
+        c = torch.arange(g.numel(), dtype=torch.float32, device=device).reshape(g.shape)
+        (g * c).sum().backward()
+        want = torch.arange(w).repeat_interleave(2)[:, None].expand(-1, 3).float()
+        return (torch.equal(g.detach().cpu(), want)
+                and torch.equal(x.grad.cpu(), w * c[2 * r:2 * r + 2].cpu()))
+
+    def broadcast():
+        t = torch.full((4,), float(r), device=device)
+        mesh.broadcast_([t])
+        return torch.equal(t.cpu(), torch.zeros(4))
+
+    def pmean():
+        return float(per_device.pmean(torch.tensor(float(r), device=device))) == (w - 1) / 2
+
+    check("all_reduce (sync BN, gradients, pmean)", all_reduce)
+    check("all_gather and its backward (pgather)", gather_and_backward)
+    check("broadcast (replicate, epoch indices)", broadcast)
+    check("pmean", pmean)
+    check("all_gather_object (checkpoint generators)",
+          lambda: mesh.gather_objects(r) == list(range(w)))
+    check("broadcast_object_list (output name)", lambda: mesh.broadcast_object(r) == 0)
+    check("barrier", lambda: mesh.barrier() is None)
+    return checks
+
+
+def _ddp_trainer_steps(cfg_path: str, out_dir: str, device) -> dict:
+    """DDP_STEPS steps of the `Trainer` on the epoch's first rows."""
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.parallel.dryrun import digest
+    from ssv_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer({"config": cfg_path, "algo": "simclr", "arch": "resnet18",
+                       "task": "train", "output": out_dir}, device=device)
+    idx_mat = trainer.epoch_indices()[:DDP_STEPS]
+    fused_photometric.launches = 0
+    state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
+    launches = fused_photometric.launches
+    out = {"losses": metrics["loss"].tolist(), "launches": launches, "img_per_s": steady,
+           "per_rank_batch": idx_mat.shape[1] // 2,
+           "digest": digest(state.model, *state.extra.values())}
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_rank(rank: int, tmp: str) -> None:
+    """One of part (b)'s two ranks on the one card, over gloo."""
+    from ssv_tpu_torch.parallel import mesh
+    from ssv_tpu_torch.parallel.dryrun import digest
+
+    device = mesh.init("cuda:0", backend="gloo", init_method=f"file://{tmp}/group",
+                       rank=rank, world_size=2, timeout_s=DDP_TIMEOUT_S)
+    try:
+        out = {"collectives": _ddp_collectives(device)}
+        if any(v != "ok" for v in out["collectives"].values()):
+            raise RuntimeError(f"gloo on CUDA tensors: {out['collectives']}")
+        algo, state, views = _simclr_f32(device)
+        losses = []
+        for batch in views:
+            local = {k: mesh.batch_slice(v).to(device) for k, v in batch.items()}
+            state, m = algo.train_step(state, local)
+            losses.append(m["loss"].item())
+        out["f32"] = {"losses": losses, "digest": digest(state.model),
+                      "state": {k: v.cpu() for k, v in state.model.state_dict().items()}}
+        del algo, state
+        out["bf16"] = {mode: _ddp_trainer_steps(os.path.join(tmp, f"{mode}.yaml"),
+                                                os.path.join(tmp, f"run-{mode}"), device)
+                       for mode in ("sync", "per_device_bn")}
+    finally:
+        mesh.destroy()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def phase_ddp(card: str, slice_out: dict) -> dict:
+    """Data-parallel training across ranks on the one card.
+
+    (a) one rank over NCCL through torchrun: SimCLR ResNet-18 from
+    configs/simclr.yaml, one epoch, `python -m ssv_tpu_torch.main` as a user
+    runs it; its per-step losses against phase 3's, its img/s beside phase
+    3's, 2 photometric launches a step.
+    (b) two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device): every collective the slice uses, on CUDA tensors; two float32
+    steps at full width on given views against the one-process step
+    (params 1e-4, BN statistics 1e-5); DDP_STEPS bf16 steps of the Trainer
+    at global batch 512 (256 a rank), sync BN and then `per_device_bn`:
+    finite losses, the state bit for bit the same on both ranks, 2 launches
+    a step at B = 256. Two ranks sharing one card give no scaling figure.
+    Then the photometric wrapper on a tensor of a device that is not the
+    current one, where the machine has a second device."""
+    import torch.multiprocessing as mp
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a)
+        cfg_path = _config(tmp, "simclr", epochs=1, eval_every=1)
+        run_dir = os.path.join(tmp, "torchrun")
+        env = dict(os.environ, PYTHONPATH=HERE)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "ssv_tpu_torch.main", "-c", cfg_path,
+               "-m", "resnet18", "-a", "simclr", "-t", "train", "-o", run_dir]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                              timeout=DDP_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"ddp (a): torchrun exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(os.path.join(run_dir, "epoch_stats.jsonl")) as f:
+            stats = json.loads(f.readline())
+        losses = _check_losses("ddp", [stats])
+        _check_launches("simclr", stats["photometric_launches"], stats["steps"])
+        diff = max(abs(a - b) for a, b in zip(losses, slice_out["losses"]))
+        print(f"[ddp] (a) torchrun, 1 rank over NCCL: {stats['steps']} steps in "
+              f"{time.perf_counter() - t0:.1f} s, steady {stats['steady_img_per_s']:.1f} img/s "
+              f"(phase 3 in this call {slice_out['img_per_s']:.1f}), per-step losses "
+              f"within {diff:.3e} of phase 3's, {stats['photometric_launches']} photometric "
+              f"launches | {card}")
+        out["a"] = {"img_per_s": stats["steady_img_per_s"], "loss_diff": diff,
+                    "launches": stats["photometric_launches"], "steps": stats["steps"]}
+
+        # (b): the one-process float32 reference first, then the two ranks
+        algo, state, views = _simclr_f32("cuda")
+        ref_losses = []
+        for batch in views:
+            state, m = algo.train_step(state, {k: v.cuda() for k, v in batch.items()})
+            ref_losses.append(m["loss"].item())
+        ref = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        del algo, state
+        for mode in ("sync", "per_device_bn"):
+            _config(tmp, "simclr", epochs=1, per_device_bn=mode != "sync")
+            os.replace(os.path.join(tmp, "simclr.yaml"), os.path.join(tmp, f"{mode}.yaml"))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_ddp_rank, args=(tmp,), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + DDP_TIMEOUT_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"ddp (b): the ranks did not end in {DDP_TIMEOUT_S} s")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+                 for r in range(2)]
+        seconds_b = time.perf_counter() - t0
+    for name, verdict in ranks[0]["collectives"].items():
+        print(f"[ddp] (b) gloo on CUDA tensors, 2 ranks: {name}: {verdict}")
+    param_err = max((ranks[0]["f32"]["state"][k].float() - v.float()).abs().max().item()
+                    for k, v in ref.items() if k.endswith(("weight", "bias")))
+    stat_err = max((ranks[0]["f32"]["state"][k] - v).abs().max().item()
+                   for k, v in ref.items() if k.endswith(("running_mean", "running_var")))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(ranks[0]["f32"]["losses"], ref_losses))
+    print(f"[ddp] (b) float32 sync steps at 2 ranks against one process, global batch "
+          f"{DDP_F32_BATCH}: params within {param_err:.3e}, BN statistics {stat_err:.3e}, "
+          f"losses {loss_err:.3e} relative")
+    if param_err > 1e-4 or stat_err > 1e-5 or loss_err > 1e-5:
+        raise AssertionError("ddp (b): the 2-rank float32 step differs from one process's")
+    if ranks[0]["f32"]["digest"] != ranks[1]["f32"]["digest"]:
+        raise AssertionError("ddp (b): the ranks' float32 states differ")
+    out["b"] = {"f32_param_err": param_err, "f32_stat_err": stat_err, "seconds": seconds_b}
+    for mode in ("sync", "per_device_bn"):
+        r0, r1 = ranks[0]["bf16"][mode], ranks[1]["bf16"][mode]
+        if not all(map(math.isfinite, r0["losses"] + r1["losses"])):
+            raise AssertionError(f"ddp (b) {mode}: non-finite losses")
+        if r0["digest"] != r1["digest"] or r0["losses"] != r1["losses"]:
+            raise AssertionError(f"ddp (b) {mode}: the ranks' states differ")
+        for r in (r0, r1):
+            if r["launches"] != 2 * DDP_STEPS:
+                raise AssertionError(f"ddp (b) {mode}: {r['launches']} photometric launches "
+                                     f"for {DDP_STEPS} steps, expected {2 * DDP_STEPS}")
+        print(f"[ddp] (b) bf16 {mode}, 2 ranks sharing the card, batch {r0['per_rank_batch']} "
+              f"a rank: {DDP_STEPS} steps, loss first {r0['losses'][0]:.4f} last "
+              f"{r0['losses'][-1]:.4f}, the state bit for bit the same on both ranks, "
+              f"{r0['launches']} launches a rank, {r0['img_per_s']:.1f} img/s (two ranks on "
+              f"one card: not a scaling figure) | {card}")
+        out["b"][mode] = {"img_per_s": r0["img_per_s"], "launches": r0["launches"] + r1["launches"]}
+    _check_device_repair()
+    return out
+
+
+def _check_device_repair() -> None:
+    """The photometric wrapper launches on its tensors' device when another
+    is current."""
+    from ssv_tpu_torch.ops.photometric import fused_photometric, photometric_reference
+    from ssv_tpu_torch.tools.measure import photometric_inputs
+
+    if torch.cuda.device_count() < 2:
+        print(f"[ddp] device repair: {torch.cuda.device_count()} CUDA device on this "
+              f"machine, no device that is not the current one to launch on: not checked")
+        return
+    with torch.cuda.device(1):
+        images, order, params, _ = photometric_inputs(
+            64, 32, 32, torch.Generator(device="cuda:1").manual_seed(0))
+    with torch.cuda.device(0):
+        got = fused_photometric(images, order, params)
+        want = photometric_reference(images, order, params)
+        torch.cuda.synchronize(1)
+    err = (got - want).abs().max().item()
+    print(f"[ddp] device repair: launched on cuda:1 with cuda:0 current, max |kernel - plain| "
+          f"= {err:.3e}")
+    if err > TOL:
+        raise AssertionError(f"photometric kernel on a non-current device: {err} > {TOL}")
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), its seconds printed under `name`."""
     t0 = time.perf_counter()
@@ -1221,7 +1487,8 @@ def main() -> None:
     _timed("build", phase_build)
     kernels = _timed("kernels", phase_kernels, card)
     _timed("small steps", phase_small_steps, ["simclr", "simclr-bottleneck", "simclr-tiny"])
-    paths = {"simclr": _timed("simclr", phase_slice, card)["launches"],
+    slice_out = _timed("simclr", phase_slice, card)
+    paths = {"simclr": slice_out["launches"],
              "simclr-resnet50": _timed("resnet50", phase_resnet50, card)["launches"]}
     paths.update({f"simclr-{k}": v["launches"] for k, v in
                   _timed("bottleneck family", phase_bottleneck_family, card).items()})
@@ -1236,6 +1503,10 @@ def main() -> None:
                         ("dino", phase_dino), ("pirl", phase_pirl),
                         ("deep_cluster", phase_deep_cluster)):
         paths[name] = _timed(name, phase, card)["launches"]
+    ddp = _timed("ddp", phase_ddp, card, slice_out)
+    paths["ddp-torchrun"] = ddp["a"]["launches"]
+    paths.update({f"ddp-gloo-{mode}": ddp["b"][mode]["launches"]
+                  for mode in ("sync", "per_device_bn")})
     _held_before_run("the end")
     print(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s | {card}")
     kernels[0]["launches"] = sum(paths.values())

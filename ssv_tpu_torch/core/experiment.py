@@ -14,6 +14,7 @@ from datetime import datetime as dt
 import numpy as np
 import torch
 
+from ..parallel.mesh import world_size
 from ..utils.logging import Logger
 from .config import load_config
 
@@ -38,13 +39,14 @@ def initialize_experiment(args: dict, output_root: str, device: torch.device,
     output_dir = os.path.join(output_root, args.get("output") or dt.now().strftime("%d-%m-%Y_%H-%M"))
     os.makedirs(output_dir, exist_ok=True)
     logger = Logger(output_dir)
-    with open(os.path.join(output_dir, "hyperparameters.txt"), "w") as f:
-        f.write(_render(config.raw()))
+    if not logger.quiet:   # rank 0 writes
+        with open(os.path.join(output_dir, "hyperparameters.txt"), "w") as f:
+            f.write(_render(config.raw()))
 
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    logger.print(f"Platform: {device.type} ({name}) | device: {device}",
-                 mode="info")
+    logger.print(f"Platform: {device.type} ({name}) | device: {device} | "
+                 f"ranks: {world_size()}", mode="info")
     return config, output_dir, logger
 
 

@@ -11,6 +11,15 @@ linear probe, the second writes `train_fvecs`, `train_gt`, `test_fvecs` and
 `-d/--device` is the counterpart of the JAX package's `JAX_PLATFORMS`: the
 run is on the CUDA card unless `--device cpu` asks for the CPU, and without
 a card it stops with an error rather than fall back to the CPU.
+
+Across ranks, under torchrun:
+
+    torchrun --nproc_per_node N -m ssv_tpu_torch.main -c <config> -m <arch> -a <algo> -t train
+
+starts the process group from torchrun's environment (NCCL, each rank on
+`cuda:LOCAL_RANK`; gloo with `-d cpu`), trains data-parallel on the config's
+global batch (`parallel/`), and destroys the group at the end. Without
+torchrun's environment the run is the single-process one.
 """
 
 from __future__ import annotations
@@ -57,18 +66,28 @@ def main(argv=None):
     if task != "train":
         _check_checkpoint_specified(args)
 
+    from .parallel import mesh
     from .train.trainer import Trainer
 
-    trainer = Trainer(args, device=args["device"])
-    if task == "train":
-        trainer.train_safe()
-    elif task == "linear_eval":
-        trainer.perform_linear_eval()
-    else:
-        for split in ("train", "test"):
-            fvecs, gt = trainer.build_features(split)
-            for name, arr in ((f"{split}_fvecs", fvecs), (f"{split}_gt", gt)):
-                np.save(os.path.join(trainer.output_dir, f"{name}.npy"), arr.cpu().numpy())
+    rank_device = mesh.init_from_env(args["device"])
+    try:
+        # one output directory for the run: rank 0's default name
+        args["output"] = mesh.broadcast_object(args["output"])
+        trainer = Trainer(args, device=rank_device or args["device"])
+        if task == "train":
+            trainer.train_safe()
+        elif task == "linear_eval":
+            trainer.perform_linear_eval()
+        else:
+            for split in ("train", "test"):
+                fvecs, gt = trainer.build_features(split)
+                if mesh.rank() == 0:
+                    for name, arr in ((f"{split}_fvecs", fvecs), (f"{split}_gt", gt)):
+                        np.save(os.path.join(trainer.output_dir, f"{name}.npy"),
+                                arr.cpu().numpy())
+    finally:
+        if rank_device is not None:
+            mesh.destroy()
     return trainer
 
 

@@ -23,15 +23,29 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..parallel.mesh import world_size
+from ..parallel.per_device import all_reduce_sum
+
 
 class _FlaxRunningVar:
     """BatchNorm whose running variance tracks the *biased* batch variance,
     as flax's does; torch's own tracks the unbiased one. Flax
-    `momentum=0.9` is torch `momentum=0.1`."""
+    `momentum=0.9` is torch `momentum=0.1`.
+
+    With `sync` set (`parallel.sync_batchnorm`) and more than one rank, a
+    training forward takes its statistics over the global batch: each
+    channel's count, sum and sum of squares, all-reduced with gradients,
+    give the mean and the biased variance as flax computes them (mean of
+    x and of x^2, var = max(0, E[x^2] - mean^2)). Otherwise it is torch's
+    BatchNorm with the running-variance correction below."""
+
+    sync = False
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.sync and world_size() > 1:
+            return self._global_forward(x)
         n = x.numel() // x.shape[1]
         keep = 1.0 - self.momentum
         old = self.running_var.clone()
@@ -42,6 +56,24 @@ class _FlaxRunningVar:
         rv = self.running_var.data
         rv.sub_(old, alpha=keep).mul_((n - 1) / n).add_(old, alpha=keep)
         return out
+
+    def _global_forward(self, x):
+        c = x.shape[1]
+        dims = [0, *range(2, x.dim())]
+        shape = [1, c] + [1] * (x.dim() - 2)
+        xf = x.float()
+        count = xf.new_full((1,), x.numel() // c)
+        sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.reshape(shape)) * scale.reshape(shape) + self.bias.reshape(shape)
+        with torch.no_grad():
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):

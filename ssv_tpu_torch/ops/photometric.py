@@ -132,10 +132,13 @@ def fused_photometric(images, order, params):
     out = torch.empty_like(images)
     if B == 0 or H * W == 0:
         return out
-    err = _library().ssv_fused_photometric(
-        ctypes.c_void_p(images.data_ptr()), ctypes.c_void_p(order.data_ptr()),
-        ctypes.c_void_p(params.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        B, H * W, ctypes.c_void_p(torch.cuda.current_stream(images.device).cuda_stream))
+    # the library launches on the current device: make it the images' (a
+    # rank's tensors on cuda:k while another device is current)
+    with torch.cuda.device(images.device):
+        err = _library().ssv_fused_photometric(
+            ctypes.c_void_p(images.data_ptr()), ctypes.c_void_p(order.data_ptr()),
+            ctypes.c_void_p(params.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            B, H * W, ctypes.c_void_p(torch.cuda.current_stream(images.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"fused_photometric kernel launch failed: CUDA error {err}")
     fused_photometric.launches += 1

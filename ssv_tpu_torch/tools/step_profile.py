@@ -11,6 +11,16 @@ union of their intervals (the device's busy time a step) and its share of
 the unprofiled step, their device time by kind, and the kernels that take
 the most of it.
 Prints a line for each and, last, one JSON object. Needs one card.
+
+Under torchrun it profiles each rank's steps on its slice of the global
+batch, and counts the collectives of a step (calls, bytes, and the host
+milliseconds inside them: the whole collective on gloo, the enqueue on
+NCCL, whose kernels the profiler's "collectives" kind times):
+
+    torchrun --nproc_per_node 2 -m ssv_tpu_torch.tools.step_profile -c configs/simclr.yaml -m resnet18 -a simclr --backend gloo
+
+(`--backend gloo` puts rank r on card r mod the cards: two ranks can
+share one card, which NCCL refuses).
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ ANNOTATIONS = ("Optimizer.step#", "Optimizer.zero_grad#", "ProfilerStep#")
 
 # kinds of device work, by the first pattern a kernel's name contains
 KINDS = (("photometric kernel", ("photometric_kernel",)),
+         ("collectives", ("nccl",)),
          ("matmul and conv", ("gemm", "xmma", "nvjet", "cutlass", "conv", "sm90_", "sm80_")),
          ("normalisation", ("layer_norm", "GammaBeta", "batch_norm")),
          ("copies and casts", ("copy", "Memcpy", "Memset")),
@@ -86,9 +97,12 @@ def profile_trainer(trainer, warmup: int = 10, steps: int = 30, profiled: int = 
     """The measurements above on a built `Trainer` (its state trains on)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from ..parallel import batch_slice, rank, world_size
+    from ..parallel.per_device import collectives
+
     card = card_line()
     algo, arch = trainer.args["algo"], trainer.args["arch"]
-    idx = trainer.pipeline.epoch_indices(trainer.generator)
+    idx = trainer.epoch_indices()
     need = warmup + 2 * steps + profiled
     if idx.shape[0] < need:
         raise ValueError(f"an epoch has {idx.shape[0]} steps, {need} are needed")
@@ -96,7 +110,7 @@ def profile_trainer(trainer, warmup: int = 10, steps: int = 30, profiled: int = 
     state = trainer.state
 
     def batch(s):
-        return trainer._batch_fn(images, labels, idx[s], trainer.generator)
+        return trainer._batch_fn(images, labels, batch_slice(idx[s]), trainer.generator)
 
     def step(s):
         nonlocal state
@@ -112,7 +126,11 @@ def profile_trainer(trainer, warmup: int = 10, steps: int = 30, profiled: int = 
 
     for s in range(warmup):
         step(s)
+    collectives.reset()
     step_ms = host_ms(step, warmup)
+    coll = {"collectives_per_step": collectives.calls / steps,
+            "collective_mb_per_step": collectives.bytes / steps / 1e6,
+            "collective_host_ms_per_step": collectives.seconds / steps * 1e3}
     batch_ms = host_ms(batch, warmup + steps)
     first = warmup + 2 * steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -130,14 +148,19 @@ def profile_trainer(trainer, warmup: int = 10, steps: int = 30, profiled: int = 
         by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + us / profiled / 1e3
     busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in ops) / profiled / 1e3
     result = {
-        "algo": algo, "arch": arch, "batch": batch_size, "step_ms": step_ms,
+        "algo": algo, "arch": arch, "batch": batch_size, "ranks": world_size(),
+        "rank": rank(), "step_ms": step_ms,
         "img_per_s": batch_size / step_ms * 1e3, "batch_ms": batch_ms,
         "device_ops_per_step": len(ops) / profiled, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / step_ms,
         "ms_per_step_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
         "top_us_per_step": {n: us / profiled for n, us in
                             sorted(by_name.items(), key=lambda kv: -kv[1])[:top]},
-        "card": card}
+        **coll, "card": card}
+    if world_size() > 1:
+        print(f"[step_profile] rank {rank()} of {world_size()}: {coll['collectives_per_step']:.1f} "
+              f"collectives a step, {coll['collective_mb_per_step']:.3f} MB, "
+              f"{coll['collective_host_ms_per_step']:.3f} ms of the host inside them")
     print(f"[step_profile] {algo} {arch} batch {batch_size}: {step_ms:.3f} ms a step by the "
           f"host clock over {steps} steps ({result['img_per_s']:.1f} img/s), the batch alone "
           f"{batch_ms:.3f} ms; under the profiler {result['device_ops_per_step']:.1f} device "
@@ -158,9 +181,20 @@ def main(argv=None):
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--profiled", type=int, default=5)
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="the process group's backend under torchrun (default: nccl)")
     args = ap.parse_args(argv)
-    print(json.dumps(profile_steps(args.config, args.arch, args.algo, args.warmup,
-                                   args.steps, args.profiled)))
+    from ..parallel import mesh
+
+    if mesh.launched():
+        # gloo lets ranks share a card: rank r on card r mod the cards
+        local = int(os.environ.get("LOCAL_RANK", 0)) % max(torch.cuda.device_count(), 1)
+        mesh.init(f"cuda:{local}" if args.backend == "gloo" else "cuda", backend=args.backend)
+    try:
+        print(json.dumps(profile_steps(args.config, args.arch, args.algo, args.warmup,
+                                       args.steps, args.profiled)))
+    finally:
+        mesh.destroy()
 
 
 if __name__ == "__main__":

@@ -8,6 +8,7 @@ import torch
 from ...models.heads import barlow_projection
 from ...models.registry import build_encoder
 from ...objectives.losses import barlow_twins, l2_normalize
+from ...parallel import pgather
 from ..base import Algorithm, DataInfo, TrainState
 from .common import Tower, forward_views
 
@@ -32,9 +33,10 @@ class BarlowTwins(Algorithm):
         state.model.train()
         with self.autocast():
             z1, z2 = forward_views(state.model, [batch["aug_1"], batch["aug_2"]], self.fuse)
-        loss = barlow_twins(z1.float(), z2.float(), **self.loss_cfg)
-        state = self.grad_step(state, loss)
-        return state, {"loss": loss.detach()}
+        # the cross-correlation spans the global batch
+        loss = barlow_twins(pgather(z1.float()), pgather(z2.float()), **self.loss_cfg)
+        state, loss = self.grad_step(state, loss, loss_scope="global")
+        return state, {"loss": loss}
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

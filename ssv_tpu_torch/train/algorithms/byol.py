@@ -71,9 +71,9 @@ class BYOL(Algorithm):
             o1, o2 = forward_views(state.model, views, self.fuse)
         loss = byol_mse(o1.float(), o2.float(), t1, t2)
         tau = self.tau(state.step)
-        state = self.grad_step(state, loss)
+        state, loss = self.grad_step(state, loss)
         self.ema(state, tau)
-        return state, {"loss": loss.detach(), "tau": torch.tensor(tau)}
+        return state, {"loss": loss, "tau": torch.tensor(tau)}
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

@@ -101,8 +101,8 @@ class DeepCluster(Algorithm):
         with self.autocast():
             _, logits = state.model(batch["aug_1"])
         loss = softmax_cross_entropy(logits, labels)
-        state = self.grad_step(state, loss)
-        return state, {"loss": loss.detach()}
+        state, loss = self.grad_step(state, loss)
+        return state, {"loss": loss}
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

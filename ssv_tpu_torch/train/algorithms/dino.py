@@ -40,6 +40,7 @@ from torch import nn
 from ...models.heads import DinoHead
 from ...models.registry import build_encoder
 from ...objectives.losses import dino_loss
+from ...parallel import pmean
 from ...state.ema import ema_update
 from ...utils.schedules import cosine_ramp, dino_teacher_temp, dino_weight_decay
 from ..base import Algorithm, DataInfo, TrainState
@@ -140,15 +141,17 @@ class DINO(Algorithm):
         frozen = None
         if step < self.freeze_last_layer * self.data.steps_per_epoch:
             frozen = list(model.proj.fc_out.parameters())
-        state = self.grad_step(state, loss, update_mask=frozen)
+        state, loss = self.grad_step(state, loss, update_mask=frozen)
 
         with torch.no_grad():
-            t_mean = torch.cat([t1.flatten(0, 1), t2.flatten(0, 1)]).mean(dim=0, keepdim=True)
+            # the replica mean of equal-size slice means: the global batch's
+            t_mean = pmean(torch.cat([t1.flatten(0, 1), t2.flatten(0, 1)])
+                           .mean(dim=0, keepdim=True))
             center.copy_(self.center_m * center + (1 - self.center_m) * t_mean)
         if self.teacher_update == "step":
             lbd = cosine_ramp(step, self.total_steps, self.lambda_lower, self.lambda_upper)
             ema_update(teacher.parameters(), model.parameters(), lbd)
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}
 
     def post_epoch(self, state: TrainState, epoch: int) -> TrainState:
         """The per-epoch teacher EMA at cosine lambda (reference

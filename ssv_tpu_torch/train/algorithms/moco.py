@@ -22,6 +22,7 @@ import torch
 from ...models.heads import LinearHead
 from ...models.registry import build_encoder
 from ...objectives.losses import l2_normalize, moco_nce
+from ...parallel import pgather
 from ...state.banks import RingBuffer, ring_push
 from ...state.ema import ema_update
 from ..base import Algorithm, DataInfo, TrainState
@@ -56,10 +57,11 @@ class MoCo(Algorithm):
         with self.autocast():
             q = state.model(batch["aug_1"]).float()
         loss = moco_nce(q, k, queue.data, **self.loss_cfg)
-        state = self.grad_step(state, loss)
+        state, loss = self.grad_step(state, loss)
         ema_update(key.parameters(), state.model.parameters(), self.m)
-        ring_push(queue, l2_normalize(k))
-        return state, {"loss": loss.detach()}
+        # the queue advances by the global batch's keys, the same on every rank
+        ring_push(queue, l2_normalize(pgather(k)))
+        return state, {"loss": loss}
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

@@ -30,6 +30,7 @@ from torch import nn
 from ...models.heads import Float32Dense
 from ...models.registry import build_encoder
 from ...objectives.losses import l2_normalize, pirl_nce
+from ...parallel import pgather
 from ...state.banks import SampleBank, sample_bank_set, sample_bank_update, sample_negatives
 from ..base import Algorithm, DataInfo, TrainState
 
@@ -115,9 +116,10 @@ class PIRL(Algorithm):
         with self.autocast():
             img_f, patch_f = state.model(batch["aug_1"], batch["aug_2"], perm)
         loss = pirl_nce(img_f, patch_f, mem_pos, mem_neg, **self.loss_cfg)
-        state = self.grad_step(state, loss)
-        sample_bank_update(bank, idx, img_f.detach(), self.m)
-        return state, {"loss": loss.detach()}
+        state, loss = self.grad_step(state, loss)
+        # the bank takes the global batch's rows, the same on every rank
+        sample_bank_update(bank, pgather(idx), pgather(img_f.detach()), self.m)
+        return state, {"loss": loss}
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

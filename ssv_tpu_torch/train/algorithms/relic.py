@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from ...objectives.losses import relic_loss
+from ...parallel import pgather
 from ..base import TrainState
 from .byol import BYOL
 from .common import forward_views
@@ -29,10 +30,12 @@ class ReLIC(BYOL):
         with self.autocast():
             o1, o2, orig = forward_views(
                 state.model, [batch["aug_1"], batch["aug_2"], batch["img"]], self.fuse)
-        o1, o2, orig = o1.float(), o2.float(), orig.float()
+        # the NT-Xent terms' negatives span the global batch
+        t1, t2 = pgather(t1), pgather(t2)
+        o1, o2, orig = pgather(o1.float()), pgather(o2.float()), pgather(orig.float())
         loss = (relic_loss(o1, t2, orig, **self.loss_cfg)
                 + relic_loss(o2, t1, orig, **self.loss_cfg))
         tau = self.tau(state.step)
-        state = self.grad_step(state, loss)
+        state, loss = self.grad_step(state, loss, loss_scope="global")
         self.ema(state, tau)
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}

@@ -24,6 +24,7 @@ from torch import nn
 from ...models.heads import ClusterHeads
 from ...models.registry import build_encoder
 from ...objectives.losses import sela_self_label, sinkhorn_codes
+from ...parallel import pmean
 from ..base import Algorithm, DataInfo, TrainState
 
 SELF_LABEL_MODES = ("sinkhorn", "reference")
@@ -141,9 +142,10 @@ class SeLA(Algorithm):
         index = labels[None, :, None].expand(logp.shape[0], -1, 1)
         per_head = -torch.gather(logp, -1, index)[..., 0].mean(dim=1)
         loss = per_head.sum()
-        state = self.grad_step(state, loss)
-        sl.best_head.copy_(per_head.detach().argmin())
-        return state, {"loss": loss.detach()}
+        state, loss = self.grad_step(state, loss)
+        # the head with the least loss over the global batch, on every rank
+        sl.best_head.copy_(pmean(per_head).argmin())
+        return state, {"loss": loss}
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

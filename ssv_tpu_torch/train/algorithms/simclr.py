@@ -8,6 +8,7 @@ import torch
 from ...models.heads import simclr_projection
 from ...models.registry import build_encoder
 from ...objectives.losses import l2_normalize, nt_xent
+from ...parallel import pgather
 from ..base import Algorithm, DataInfo, TrainState
 from .common import Tower, forward_views
 
@@ -35,9 +36,10 @@ class SimCLR(Algorithm):
         model.train()
         with self.autocast():
             z1, z2 = forward_views(model, [batch["aug_1"], batch["aug_2"]], self.fuse)
-        loss = nt_xent(z1.float(), z2.float(), **self.loss_cfg)
-        state = self.grad_step(state, loss)
-        return state, {"loss": loss.detach()}
+        # the negatives span the global batch
+        loss = nt_xent(pgather(z1.float()), pgather(z2.float()), **self.loss_cfg)
+        state, loss = self.grad_step(state, loss, loss_scope="global")
+        return state, {"loss": loss}
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

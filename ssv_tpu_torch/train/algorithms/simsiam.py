@@ -70,8 +70,8 @@ class SimSiam(Algorithm):
                     z2, o2 = model(views[1], return_pair=True)
         o1, o2, z1, z2 = o1.float(), o2.float(), z1.float(), z2.float()
         loss = 0.5 * (simsiam_neg_cosine(o1, z2) + simsiam_neg_cosine(o2, z1))
-        state = self.grad_step(state, loss)
-        return state, {"loss": loss.detach()}
+        state, loss = self.grad_step(state, loss)
+        return state, {"loss": loss}
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

@@ -19,6 +19,7 @@ from torch import nn
 from ...models.heads import Prototypes, swav_projection
 from ...models.registry import build_encoder
 from ...objectives.losses import swav_loss
+from ...parallel import pgather
 from ...state.banks import RingBuffer, ring_push
 from ..base import Algorithm, DataInfo, TrainState
 from .common import Tower, forward_views
@@ -71,12 +72,13 @@ class SwAV(Algorithm):
         with self.autocast():
             z1, z2 = forward_views(state.model.tower, [batch["aug_1"], batch["aug_2"]],
                                    self.fuse)
-        z1, z2 = z1.float(), z2.float()
+        # Sinkhorn's marginals and the bank push span the global batch
+        z1, z2 = pgather(z1.float()), pgather(z2.float())
         loss = swav_loss(z1, z2, state.model.prototypes(), bank_features=bank.data,
                          **self.loss_cfg)
-        state = self.grad_step(state, loss)
+        state, loss = self.grad_step(state, loss, loss_scope="global")
         ring_push(bank, torch.cat([z1, z2]).detach())
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

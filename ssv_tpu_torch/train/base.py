@@ -11,6 +11,13 @@ plus optional hooks (`post_epoch`, `pre_train`, `pre_epoch`). The
 and in `extra` the algorithm's other modules (an EMA target), so a
 checkpoint is one save; `grad_step` is the shared backward + optimizer
 update.
+
+Across ranks (`parallel/`) each rank steps its replica on its slice of the
+global batch: `place` switches the BatchNorms to global statistics unless
+the config asks for `per_device_bn`, and `grad_step` averages the
+gradients over the ranks before the update (and, under `per_device_bn`,
+the BN running statistics after it), as the JAX `grad_step` reduces them
+under `shard_map`.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
+
+from ..parallel import pmean, pmean_bn_, reduce_grads, sync_batchnorm, world_size
 
 
 @dataclass
@@ -57,6 +66,9 @@ class Algorithm:
         if compute not in (None, "float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute!r}")
         self.autocast_dtype = None if compute == "float32" else torch.bfloat16
+        # per_device_bn: each rank's BatchNorms see only its slice (the JAX
+        # package's shard_map path); otherwise their statistics are global
+        self.per_device_bn = bool(config.get("per_device_bn", False))
 
     def encoder_cfg(self) -> dict:
         """The `encoder` block with `compute_dtype` folded in as its `dtype`
@@ -105,9 +117,12 @@ class Algorithm:
     # -- shared helpers -------------------------------------------------
     def place(self, module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
         """Draws `module`'s weights from the host `generator`, so a run
-        starts from the same weights on any device, and moves it to the
-        device (channels-last for cuDNN on CUDA)."""
+        starts from the same weights on any device (and on every rank), and
+        moves it to the device (channels-last for cuDNN on CUDA). Across
+        ranks its BatchNorms take global statistics unless `per_device_bn`."""
         module.init_weights(generator)
+        if world_size() > 1 and not self.per_device_bn:
+            sync_batchnorm(module)
         module = module.to(self.device)
         if self.device.type == "cuda":
             module = module.to(memory_format=torch.channels_last)
@@ -126,16 +141,23 @@ class Algorithm:
                              self.lr_fn(), weight_decay_fn=weight_decay_fn,
                              grad_clip=grad_clip)
 
-    def grad_step(self, state: TrainState, loss: torch.Tensor,
-                  update_mask=None) -> TrainState:
-        """Backward of `loss`, one optimizer step at lr(state.step), then the
-        schedule advances to the next step. The parameters in `update_mask`
-        keep their values through the step: their optimizer *update* is
-        zeroed, so decoupled weight decay does not move them either, while
-        the optimizer's moments take their gradients as usual (the JAX
-        package's `update_mask`)."""
+    def grad_step(self, state: TrainState, loss: torch.Tensor, update_mask=None,
+                  loss_scope: str = "local") -> tuple[TrainState, torch.Tensor]:
+        """Backward of `loss`, the gradients averaged over the ranks, one
+        optimizer step at lr(state.step), then the schedule advances to the
+        next step. Returns the state and the loss's replica mean, detached.
+        `loss_scope` says how the loss was built: "local", a per-sample
+        mean over this rank's slice, or "global", one loss from gathered
+        rows (`parallel/per_device.py` derives why both take the mean).
+        The parameters in `update_mask` keep their values through the step:
+        their optimizer *update* is zeroed, so decoupled weight decay does
+        not move them either, while the optimizer's moments take their
+        gradients as usual (the JAX package's `update_mask`). Under
+        `per_device_bn` the BN running statistics of the state's modules
+        are replica-meaned after the step."""
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        reduce_grads(state.model.parameters(), loss_scope)
         frozen = [p.detach().clone() for p in update_mask or ()]
         state.optimizer.step()
         if frozen:
@@ -143,4 +165,6 @@ class Algorithm:
                 torch._foreach_copy_(list(update_mask), frozen)
         state.scheduler.step()
         state.step += 1
-        return state
+        if self.per_device_bn:
+            pmean_bn_(state.model, *state.extra.values())
+        return state, pmean(loss)

@@ -3,8 +3,13 @@
 A checkpoint is one `torch.save` of the whole `TrainState`: the model, the
 optimizer (momentum buffers), the scheduler, the step, each module of
 `extra` (an EMA target with its BN statistics), and the state of the
-generator every random draw of the run comes from. Restoring all of it
+generator every random draw of the run comes from (one a rank). Restoring all of it
 makes a resumed run equal the run that was never stopped.
+
+Across ranks the state is the same on every rank and each rank draws from
+its own generator: every rank's generator state is gathered to the one
+file rank 0 writes, and each rank restores its own, so a checkpoint
+resumes only at the world size that wrote it.
 """
 
 from __future__ import annotations
@@ -13,30 +18,44 @@ import os
 
 import torch
 
+from ..parallel import rank, world_size
+from ..parallel.mesh import gather_objects
 from .base import TrainState
 
 
 def save_state(path: str, state: TrainState, generator: torch.Generator) -> None:
     """Writes the checkpoint to a temporary file and renames it over `path`,
-    so an interrupted save leaves the previous checkpoint whole."""
+    so an interrupted save leaves the previous checkpoint whole. Every rank
+    calls it; rank 0 writes."""
+    generators = gather_objects(generator.get_state())
+    if rank() != 0:
+        return
     blob = {
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "scheduler": state.scheduler.state_dict(),
         "step": state.step,
         "extra": {k: m.state_dict() for k, m in state.extra.items()},
-        "generator": generator.get_state(),
+        "generators": generators,
     }
     tmp = f"{path}.tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)
 
 
-def restore_state(path: str, state: TrainState, generator: torch.Generator) -> TrainState:
-    """Loads a checkpoint into `state` and `generator` in place, its tensors
-    mapped to the device the model lives on."""
+def restore_state(path: str, state: TrainState,
+                  generator: torch.Generator | None) -> TrainState:
+    """Loads a checkpoint into `state` and, unless None, `generator` (this
+    rank's), in place, its tensors mapped to the device the model lives on.
+    Restoring a generator at another world size than the saving run's
+    raises."""
     device = next(state.model.parameters()).device
     blob = torch.load(path, map_location=device, weights_only=True)
+    saved = len(blob["generators"])
+    if generator is not None and saved != world_size():
+        raise ValueError(f"checkpoint {path} was saved by {saved} rank(s) and holds a "
+                         f"generator for each; this run has {world_size()}: resume it "
+                         f"at the world size that saved it")
     if set(blob["extra"]) != set(state.extra):
         raise KeyError(f"checkpoint {path} holds extra {sorted(blob['extra'])}, "
                        f"the algorithm {sorted(state.extra)}")
@@ -46,5 +65,6 @@ def restore_state(path: str, state: TrainState, generator: torch.Generator) -> T
     state.step = int(blob["step"])
     for k, module in state.extra.items():
         module.load_state_dict(blob["extra"][k])
-    generator.set_state(blob["generator"].cpu())
+    if generator is not None:
+        generator.set_state(blob["generators"][rank()].cpu())
     return state

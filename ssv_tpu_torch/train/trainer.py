@@ -8,6 +8,15 @@ on the device; augmentation, forward, backward and the optimizer update all
 stay on the device, and the per-step losses are read to the host once per
 epoch. `train_safe()` flushes `latest` on an interrupt or error, and
 `args["load"]` resumes from a run's directory.
+
+Under a process group (`parallel/`, started by `python -m
+ssv_tpu_torch.main` under torchrun) every rank builds the same state,
+rank 0's epoch index matrix is broadcast, and each rank trains on its
+slice of every row with draws from its own generator (rank 0's is seeded
+as a run without a group seeds it). Each rank embeds its slice of every
+eval batch and the features are gathered, so KNN, the probe and the
+algorithms' passes over a split see the whole split on every rank. Only
+rank 0 writes checkpoints, logs and the epoch records.
 """
 
 from __future__ import annotations
@@ -22,6 +31,9 @@ from ..core.experiment import DEFAULT_SEED, initialize_experiment
 from ..data.pipeline import DataPipeline
 from ..evals.knn import compute_neighbor_accuracy
 from ..evals.linear import linear_evaluation
+from ..ops.photometric import fused_photometric
+from ..parallel import batch_slice, pgather, rank, replicate
+from ..parallel.mesh import barrier, broadcast_
 from ..utils.logging import get_wandb, progress_bar
 from .base import DataInfo, TrainState
 from .checkpoint import restore_state, save_state
@@ -41,7 +53,10 @@ def default_device(device: torch.device | str | None = None) -> torch.device:
 
 
 class Trainer:
-    def __init__(self, args: dict, device: torch.device | str | None = None):
+    def __init__(self, args: dict, device: torch.device | str | None = None,
+                 synthetic_sizes: tuple[int, int] | None = None):
+        """`synthetic_sizes` (train, test) sizes the synthetic dataset used
+        where the config's dataset is not on disk, as the JAX Trainer's."""
         self.device = default_device(device)
         self.args = dict(args)
         # float32 matmuls and convolutions stay float32 (the bf16 autocast
@@ -59,7 +74,7 @@ class Trainer:
         self.wandb.init(project=(cfg.get("wandb") or {}).get("project"),
                         output_dir=self.output_dir)
 
-        self.pipeline = DataPipeline(cfg["data"], self.device)
+        self.pipeline = DataPipeline(cfg["data"], self.device, synthetic_sizes=synthetic_sizes)
         self.data_info = DataInfo(
             num_classes=self.pipeline.num_classes,
             n_train=self.pipeline.n_train,
@@ -71,11 +86,16 @@ class Trainer:
         self.epochs = int(cfg["epochs"])
         self.eval_every = int(cfg.get("eval_every", 10))
 
-        # every random draw of the run comes from this device generator;
-        # the weights from a host generator of the same seed
-        self.generator = torch.Generator(device=self.device).manual_seed(DEFAULT_SEED)
+        # every random draw of the run comes from this device generator (one
+        # a rank, rank 0's of the run's seed); the weights from a host
+        # generator of the seed, the same on every rank, and rank 0's copy
+        # is put on every rank
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            DEFAULT_SEED + rank())
         self.state: TrainState = self.algorithm.init_state(
             torch.Generator().manual_seed(DEFAULT_SEED))
+        for module in (self.state.model, *self.state.extra.values()):
+            replicate(module)
 
         self._batch_fn = self.pipeline.make_batch_fn(self.algorithm.batch_kind)
         self._eval_t = self.pipeline.make_eval_transform()
@@ -95,11 +115,15 @@ class Trainer:
         batches of the train batch (the last padded; `count` real rows),
         the images through the eval transform with a fixed generator of
         seed 0, as the JAX trainer's PRNGKey(0), for any random op. What
-        `fn` returns stays on the device."""
+        `fn` returns stays on the device. Across ranks every rank transforms
+        the whole batch (the same draws as one process), embeds its slice,
+        and the slices are gathered: every rank yields the whole batch."""
         images, _ = self.pipeline.arrays(split)
         generator = torch.Generator(device=self.device).manual_seed(0)
         for idx, count in self.pipeline.eval_batches(split):
-            yield fn(state, self._eval_t(generator, images[idx])), idx, count
+            out = fn(state, batch_slice(self._eval_t(generator, images[idx])))
+            out = tuple(map(pgather, out)) if isinstance(out, tuple) else pgather(out)
+            yield out, idx, count
 
     def stream_train(self, state: TrainState, fn):
         """`_stream` over the train split (SeLA's self-labelling)."""
@@ -153,27 +177,34 @@ class Trainer:
     # checkpoints: <output_dir>/<name> and <output_dir>/<name>.meta.json
     # ------------------------------------------------------------------
     def save_checkpoint(self, name: str = "best_model", epoch: int | None = None):
+        """Every rank takes part (the generators are gathered); rank 0
+        writes, and the ranks wait for it."""
         save_state(os.path.join(self.output_dir, name), self.state, self.generator)
-        meta = {"best_metric": self.best_metric,
-                "start_epoch": (epoch + 1) if epoch is not None else self.start_epoch}
-        with open(os.path.join(self.output_dir, f"{name}.meta.json"), "w") as f:
-            json.dump(meta, f)
+        if rank() == 0:
+            meta = {"best_metric": self.best_metric,
+                    "start_epoch": (epoch + 1) if epoch is not None else self.start_epoch}
+            with open(os.path.join(self.output_dir, f"{name}.meta.json"), "w") as f:
+                json.dump(meta, f)
+        barrier()
 
     def load_checkpoint(self, ckpt_dir: str, name: str | None = None):
         """Restores the full state from `ckpt_dir`: `name` if given, else
         for `train` the rolling `latest` first (exact resume), then
         `best_model`; for the inference tasks `best_model` first (the
-        reference's only checkpoint), then `latest`."""
+        reference's only checkpoint), then `latest`. `train` also restores
+        each rank's generator, so it resumes only at the world size that
+        saved; the inference tasks draw nothing from them and load at any."""
+        train = self.args.get("task") == "train"
         if name:
             candidates = [name]
-        elif self.args.get("task") == "train":
+        elif train:
             candidates = ["latest", "best_model"]
         else:
             candidates = ["best_model", "latest"]
         for cand in candidates:
             path = os.path.join(ckpt_dir, cand)
             if os.path.exists(path):
-                restore_state(path, self.state, self.generator)
+                restore_state(path, self.state, self.generator if train else None)
                 meta_path = os.path.join(ckpt_dir, f"{cand}.meta.json")
                 if os.path.exists(meta_path):
                     with open(meta_path) as f:
@@ -193,7 +224,7 @@ class Trainer:
         collected: dict[str, list] = {}
         events = []
         for s in range(idx_mat.shape[0]):
-            batch = self._batch_fn(images, labels, idx_mat[s], self.generator)
+            batch = self._batch_fn(images, labels, batch_slice(idx_mat[s]), self.generator)
             state, metrics = self.algorithm.train_step(state, batch, self.generator)
             for k, v in metrics.items():
                 collected.setdefault(k, []).append(v)
@@ -209,6 +240,20 @@ class Trainer:
             steady = (len(events) - STEADY_AFTER) * idx_mat.shape[1] / (ms / 1e3)
         return state, metrics, steady
 
+    def epoch_indices(self) -> torch.Tensor:
+        """The epoch's (steps, batch) index matrix: rank 0's draw, on every
+        rank."""
+        idx_mat = self.pipeline.epoch_indices(self.generator)
+        broadcast_([idx_mat])
+        return idx_mat
+
+    def _record(self, stats: dict) -> None:
+        """Appends an epoch's record to `<output_dir>/epoch_stats.jsonl`
+        (rank 0)."""
+        if rank() == 0:
+            with open(os.path.join(self.output_dir, "epoch_stats.jsonl"), "a") as f:
+                f.write(json.dumps(stats) + "\n")
+
     def train(self) -> float:
         """Runs the epochs from `start_epoch`; returns the final linear
         probe's accuracy."""
@@ -220,7 +265,8 @@ class Trainer:
             state = self.state
         for epoch in range(self.start_epoch, self.epochs + 1):
             state = self.algorithm.pre_epoch(state, self, epoch)
-            idx_mat = self.pipeline.epoch_indices(self.generator)
+            idx_mat = self.epoch_indices()
+            launches = fused_photometric.launches
             t0 = time.perf_counter()
             state, metrics, steady = self._run_epoch(state, idx_mat)
             state = self.algorithm.post_epoch(state, epoch)
@@ -231,7 +277,9 @@ class Trainer:
             self.epoch_stats.append({
                 "epoch": epoch, "steps": idx_mat.shape[0],
                 "losses": metrics["loss"].tolist(), "seconds": dt,
-                "steady_img_per_s": steady})
+                "steady_img_per_s": steady,
+                "photometric_launches": fused_photometric.launches - launches})
+            self._record(self.epoch_stats[-1])
 
             ips = idx_mat.numel() / dt
             msg = (f"Epoch {epoch:4d}/{self.epochs:4d} "

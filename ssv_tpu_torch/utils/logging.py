@@ -13,6 +13,9 @@ its exception in wandb's error reporting for the life of the process, and
 that exception's frames reach the caller's (`Trainer.__init__`, the
 script's), whose locals then keep the whole trainer, its dataset and
 weights on the device, alive.
+
+Across ranks only rank 0 prints, writes the log file and records to
+wandb; the other ranks' loggers and runs are silent.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import logging
 import os
 import sys
 import time
+
+from ..parallel.mesh import rank
 
 COLORS = {
     "info": "\033[96m",     # cyan
@@ -33,19 +38,23 @@ COLORS = {
 
 
 class Logger:
-    """Colored stdout + plain-text file logger (`trainlogs.txt`)."""
+    """Colored stdout + plain-text file logger (`trainlogs.txt`); silent on
+    ranks other than 0."""
 
     def __init__(self, output_dir: str | None = None):
         self._log = logging.getLogger(f"ssv_tpu_torch.{id(self)}")
         self._log.setLevel(logging.INFO)
         self._log.propagate = False
-        if output_dir is not None:
+        self.quiet = rank() != 0
+        if output_dir is not None and not self.quiet:
             os.makedirs(output_dir, exist_ok=True)
             fh = logging.FileHandler(os.path.join(output_dir, "trainlogs.txt"))
             fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
             self._log.addHandler(fh)
 
     def print(self, msg: str, mode: str = "info") -> None:
+        if self.quiet:
+            return
         color = COLORS.get(mode, "")
         label = f"{mode.upper()}: " if mode != "train" else ""
         sys.stdout.write(f"{color}{label}{msg}{COLORS['end']}\n")
@@ -60,6 +69,8 @@ class Logger:
 
 
 def progress_bar(progress: float, desc: str = "", status: str = "", width: int = 30) -> None:
+    if rank() != 0:
+        return
     progress = min(max(progress, 0.0), 1.0)
     filled = int(width * progress)
     bar = "=" * filled + ">" + "." * (width - filled - 1) if filled < width else "=" * width
@@ -112,6 +123,9 @@ class _WandbShim:
                 pass
 
     def init(self, project: str | None = None, output_dir: str | None = None, **kwargs):
+        if rank() != 0:
+            self._run = _OfflineRun(None, project)   # records nothing
+            return self._run
         if self._wandb is not None:
             return self._wandb.init(project=project, **kwargs)
         self._run = _OfflineRun(output_dir, project)

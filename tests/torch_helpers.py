@@ -3,18 +3,25 @@
 Each test makes its inputs with numpy from a seed, runs the JAX function and
 the port's counterpart on them, and compares the results as numpy arrays.
 Weights move from the JAX side to the port through ssv_tpu_torch/convert.py.
+
+JAX is imported inside the functions that use it: the rank processes the
+data-parallel tests spawn (`run_ranks`) import this module and run only the
+port.
 """
 
 import os
 import pickle
+import tempfile
+import time
 
-import jax
 import numpy as np
 import torch
 
 
 def to_numpy_tree(tree):
     """A flax variable tree (nested dicts of JAX arrays) as numpy arrays."""
+    import jax
+
     return jax.tree_util.tree_map(np.asarray, dict(tree))
 
 
@@ -68,6 +75,8 @@ def strict_jit(fn, *args):
     """`fn(*args)` compiled with XLA's excess precision off, so each bf16 op
     of a flax module rounds where its dtype says (XLA on the CPU otherwise
     keeps float32 between the ops it fuses, which no port can follow)."""
+    import jax
+
     return jax.jit(fn).lower(*args).compile(
         compiler_options={"xla_allow_excess_precision": False})(*args)
 
@@ -130,3 +139,274 @@ def assert_state_matches(tstate, jstate, algo, param_tol=1e-4, stat_tol=1e-5):
                    else param_tol)
             np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=tol,
                                        err_msg=f"{name}.{k}")
+
+
+# ---------------------------------------------------------------------------
+# data-parallel tests: ranks as spawned CPU processes on gloo
+# ---------------------------------------------------------------------------
+RANK_TIMEOUT_S = 120   # a spawn's join, and each collective's wait
+
+
+def start_group(rank, world, tmp, name="group"):
+    """Starts a gloo group of `world` ranks through a file under `tmp`."""
+    from ssv_tpu_torch.parallel import mesh
+
+    mesh.init("cpu", backend="gloo", init_method=f"file://{os.path.join(tmp, name)}",
+              rank=rank, world_size=world, timeout_s=RANK_TIMEOUT_S)
+
+
+def _rank_main(rank, fn, world, tmp, args):
+    from ssv_tpu_torch.parallel import mesh
+
+    torch.set_num_threads(1)
+    try:
+        out = fn(rank, world, tmp, *args)
+    finally:
+        mesh.destroy()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def run_ranks(fn, world, *args, timeout=RANK_TIMEOUT_S):
+    """Runs fn(rank, world, tmp, *args) in `world` spawned processes (one
+    thread each) and returns their results in rank order. `fn` starts its
+    group with `start_group(rank, world, tmp)`. A rank that raises fails
+    the call with its traceback; ranks still running after `timeout`
+    seconds are killed and the call fails."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(_rank_main, args=(fn, world, tmp, args), nprocs=world,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{fn.__name__} at {world} ranks did not end "
+                                   f"within {timeout} s")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+                for r in range(world)]
+
+
+def _toy_state(model):
+    """A TrainState of `model` under plain SGD at lr 1 (the JAX test's
+    `optax.sgd(1.0)`)."""
+    from ssv_tpu_torch.train.base import TrainState
+
+    opt = torch.optim.SGD(model.parameters(), lr=1.0)
+    return TrainState(model, opt, torch.optim.lr_scheduler.LambdaLR(opt, lambda s: 1.0))
+
+
+def _toy_algorithm():
+    from ssv_tpu_torch.train.base import Algorithm
+
+    algo = Algorithm.__new__(Algorithm)
+    algo.per_device_bn = False
+    return algo
+
+
+def toy_reduction_steps(x, gathered):
+    """One `grad_step` of w (from 1) on the rank's slice of x (16,): a local
+    per-sample mean loss, mean(w x + x^2), or, `gathered`, mean(z sum(z))
+    over z = pgather(w x), the same on every rank (the JAX tests'
+    `test_local_mean_loss_grads_pmean_matches_sync` and
+    `test_global_gathered_loss_grads_psum_matches_sync`). Returns (w after
+    the step, the loss metric)."""
+    from ssv_tpu_torch.parallel import batch_slice, pgather
+
+    model = torch.nn.Module()
+    model.w = torch.nn.Parameter(torch.ones((), dtype=x.dtype))
+    state = _toy_state(model)
+    xs = batch_slice(x)
+    if gathered:
+        z = pgather(model.w * xs)
+        loss, scope = (z * z.sum()).mean(), "global"
+    else:
+        loss, scope = (model.w * xs + xs ** 2).mean(), "local"
+    state, metric = _toy_algorithm().grad_step(state, loss, loss_scope=scope)
+    return model.w.detach().clone(), metric.clone()
+
+
+def rank_toy_reduction(rank, world, tmp, x):
+    start_group(rank, world, tmp)
+    return {g: toy_reduction_steps(torch.from_numpy(x), g) for g in (False, True)}
+
+
+def batchnorm_case(x, upstream, weight, bias, sync):
+    """The port's BatchNorm (1d for (N, C), 2d for (N, C, H, W)) in train
+    mode on the rank's slice of x, starting from running mean 0.5 and
+    variance 2; backward of sum(y * upstream) over the slice. Returns the
+    output, input gradient, weight and bias gradients (this rank's share)
+    and the running statistics."""
+    from ssv_tpu_torch.models.resnet import BatchNorm1d, BatchNorm2d
+    from ssv_tpu_torch.parallel import batch_slice
+
+    c = x.shape[1]
+    bn = (BatchNorm1d if x.dim() == 2 else BatchNorm2d)(c)
+    bn.sync = sync
+    with torch.no_grad():
+        bn.weight.copy_(weight)
+        bn.bias.copy_(bias)
+        bn.running_mean.fill_(0.5)
+        bn.running_var.fill_(2.0)
+    xs = batch_slice(x).clone().requires_grad_(True)
+    y = bn.train()(xs)
+    (y * batch_slice(upstream)).sum().backward()
+    return {"y": y.detach(), "dx": xs.grad, "dw": bn.weight.grad, "db": bn.bias.grad,
+            "mean": bn.running_mean.clone(), "var": bn.running_var.clone()}
+
+
+def rank_batchnorm(rank, world, tmp, cases):
+    start_group(rank, world, tmp)
+    return [batchnorm_case(*(torch.from_numpy(a) for a in arrays), sync=True)
+            for arrays in cases]
+
+
+def use_small_resnet(arch="resnet18"):
+    """`small_resnet18`'s two-stage ResNet in the port's registry alone, for
+    a rank process (which imports no JAX)."""
+    from ssv_tpu_torch.models import registry as torch_registry
+    from ssv_tpu_torch.models import resnet as TR
+
+    block = getattr(TR, {"resnet18": "BasicBlock", "resnet50": "Bottleneck"}[arch])
+    torch_registry.NETWORKS[arch] = {
+        "net": lambda **kw: TR.ResNet(block, SMALL_STAGES, **kw),
+        "dim": 128 * block.expansion}
+
+
+def _as_batch(batch):
+    from ssv_tpu_torch.parallel import batch_slice
+
+    return {k: batch_slice(torch.from_numpy(np.asarray(v)))
+            .to(torch.int64 if k in ("idx", "index") else None) for k, v in batch.items()}
+
+
+def algorithm_steps(case, rank=0):
+    """The port's steps of one case (see tests/test_torch_parallel_algos.py):
+    the algorithm built from `case["cfg"]`, the state loaded from
+    `case["init"]` ({module name: state_dict}), each global batch of
+    `case["batches"]` sliced for this rank, PIRL's draws injected (one per
+    step, or one per step and rank), DINO's epoch EMA after the steps.
+    Returns the loss metrics and the final state dicts."""
+    from ssv_tpu_torch.train.base import DataInfo
+    from ssv_tpu_torch.train.registry import build_algorithm
+
+    use_small_resnet()
+    algo = build_algorithm(case["algo"], case["cfg"], case["arch"], DataInfo(*case["info"]),
+                           "cpu")
+    state = algo.init_state(torch.Generator().manual_seed(0))
+    for name, sd in case["init"].items():
+        (state.model if name == "model" else state.extra[name]).load_state_dict(sd)
+    losses = []
+    for s, batch in enumerate(case["batches"]):
+        draws = case.get("draws")
+        if draws is not None:
+            perm, neg = draws[s] if isinstance(draws[s], tuple) else draws[s][rank]
+            algo.draw = (lambda g, bank, i, p=perm, n=neg:
+                         (torch.from_numpy(p), bank.data[torch.from_numpy(n)]))
+        state, metrics = algo.train_step(state, _as_batch(batch), None)
+        losses.append(metrics["loss"].item())
+    if case["algo"] == "dino":
+        state = algo.post_epoch(state, 1)
+    return {"losses": losses, "step": state.step, "model": state.model.state_dict(),
+            "extra": {k: m.state_dict() for k, m in state.extra.items()}}
+
+
+def rank_algorithm_steps(rank, world, tmp, cases):
+    start_group(rank, world, tmp)
+    return {name: algorithm_steps(case, rank) for name, case in cases.items()}
+
+
+def load_state_dicts(tstate, result):
+    """Loads `algorithm_steps`' final state dicts into a port TrainState."""
+    tstate.model.load_state_dict(result["model"])
+    for k, sd in result["extra"].items():
+        tstate.extra[k].load_state_dict(sd)
+    tstate.step = result["step"]
+    return tstate
+
+
+def assert_ranks_identical(results):
+    """Every rank's state dicts equal rank 0's, bit for bit."""
+    first = results[0]
+    for r, res in enumerate(results[1:], start=1):
+        for name in ("model", *first["extra"]):
+            a = first["model"] if name == "model" else first["extra"][name]
+            b = res["model"] if name == "model" else res["extra"][name]
+            assert a.keys() == b.keys()
+            for k in a:
+                assert torch.equal(a[k], b[k]), f"rank {r} {name}.{k} differs from rank 0's"
+
+
+def simclr_case(steps=3, batch=8, size=16):
+    """SimCLR on the small ResNet, float32, on given views (numpy, seeded)."""
+    import helpers
+
+    cfg = helpers.mini_config("simclr", batch_size=batch)
+    cfg["compute_dtype"] = "float32"
+    cfg["optimizer"]["lr"] = 0.003
+    rs = np.random.RandomState(0)
+    batches = [{k: rs.randn(batch, size, size, 3).astype(np.float32)
+                for k in ("aug_1", "aug_2")} for _ in range(steps)]
+    return {"algo": "simclr", "cfg": cfg, "arch": "resnet18", "info": (10, 64, batch, 8),
+            "init": {}, "batches": batches}
+
+
+def rank_one_vs_no_group(rank, world, tmp):
+    case = simclr_case()
+    out = {"no_group": algorithm_steps(case)}
+    start_group(rank, world, tmp)
+    out["group"] = algorithm_steps(case)
+    return out
+
+
+class StopAtEpoch(Exception):
+    pass
+
+
+def cli_rank(argv):
+    """One rank of `python -m ssv_tpu_torch.main` under torchrun: argv is
+    <result prefix> <stop epoch or 0> <main's arguments>.
+    With a stop epoch, the algorithm's `pre_epoch` raises at that epoch's
+    start (so `train_safe` saves `latest`). Writes <prefix><rank>.json:
+    the epochs' records, the best KNN accuracy, the probe's accuracy, and
+    whether the run stopped."""
+    import json
+
+    from ssv_tpu_torch import main as cli
+    from ssv_tpu_torch.train import trainer as trainer_mod
+
+    prefix, stop, *args = argv
+    build = trainer_mod.build_algorithm
+    seen = {}
+
+    def build_with_stop(*a, **kw):
+        algo = build(*a, **kw)
+        pre_epoch = algo.pre_epoch
+
+        def stop_at(state, trainer, epoch):
+            seen["trainer"] = trainer
+            if epoch == int(stop):
+                raise StopAtEpoch(epoch)
+            return pre_epoch(state, trainer, epoch)
+        algo.pre_epoch = stop_at
+        return algo
+
+    trainer_mod.build_algorithm = build_with_stop
+    try:
+        trainer, stopped = cli.main(args), False
+    except StopAtEpoch:
+        trainer, stopped = seen["trainer"], True
+    probe = trainer.linear_eval_stats
+    out = {"epoch_stats": trainer.epoch_stats, "best_metric": trainer.best_metric,
+           "probe": probe and probe["accuracy"], "stopped": stopped,
+           "rank": int(os.environ["RANK"]), "world": int(os.environ["WORLD_SIZE"])}
+    with open(f"{prefix}{out['rank']}.json", "w") as f:
+        json.dump(out, f)
+
+
+if __name__ == "__main__":
+    import sys
+
+    if sys.argv[1] == "cli":
+        cli_rank(sys.argv[2:])
