@@ -82,6 +82,21 @@ bf16 steps of the Trainer at global batch 512 with sync BN and then with
 launches a step at B = 256 on each rank); then the photometric wrapper on a
 tensor of a device that is not the current one, where a second device
 exists (it says so where none does).
+Phase 9 also sets `SSV_TPU_PROFILE_DIR` on its run (not resumed): the
+`Trainer` writes one `torch.profiler` trace, of epoch 2 alone, and the
+phase checks that it spans epoch 2's steps and names the photometric
+kernel's CUDA function once a step.
+Phase `quality` runs `python -m ssv_tpu_torch.tools.quality_run` through its
+entry point: SimCLR ResNet-18 from configs/simclr.yaml on synth100 at full
+size (50,000 / 10,000) for 2 epochs with a KNN each and the probe (the JSON
+line strict, 2 curve points, the probe's accuracy in (0, 1]); then a run on
+`tiny` whose parameters a `pre_epoch` hook fills with NaN at epoch 1: the row
+says `nan_at` 1, `linear` null, and the probe never ran. Phase 2 also times
+the kernel at the sweep's batches: 250 (SeLA), 32 (DINO's row by its name)
+and 8 (the batch that row runs).
+Phase `sweep` runs the 12 rows of `python -m ssv_tpu_torch.tools.sweep` (the
+synthetic set cut to SWEEP_SIZES, SWEEP_EPOCHS epochs each) and prints each
+row's img/s beside its committed floor; the floors are no gate here.
 Every training phase checks the photometric launches per train step (two,
 one for SeLA's single augmented view; DeepCluster builds and pays for the
 `aug_2` it never reads), prints its steady img/s and its peak
@@ -115,9 +130,12 @@ LAUNCHES_PER_STEP = {"simclr": 2, "byol": 2, "simsiam": 2, "relic": 2, "barlow":
                      "deep_cluster": 2}
 BF16_FLOPS = 989e12   # H100 SXM dense bf16 peak (NVIDIA data sheet, at 700 W)
 # the batches the paths give the kernel: 512 (SimCLR, BYOL, SimSiam, ReLIC,
-# Barlow, SwAV, DeepCluster), 256 (MoCo, PIRL), 500 (SeLA), 64 (DINO, whose
-# two base transforms run before the multi-crop); the first is the main path's
-TIMED_BATCHES = (512, 256, 500, 64)
+# Barlow, SwAV, DeepCluster), 256 (MoCo, PIRL, the sweep), 500 (SeLA), 64
+# (DINO, whose two base transforms run before the multi-crop), 250 (the
+# sweep's SeLA row), 32 (the sweep's DINO row by its name) and 8 (the batch
+# that row runs: mini_config's DINO data block sets it); the first is the
+# main path's
+TIMED_BATCHES = (512, 256, 500, 64, 250, 32, 8)
 
 
 def phase_env() -> str:
@@ -972,7 +990,9 @@ def phase_sela(card: str) -> dict:
     """SeLA ResNet-18 from configs/sela.yaml (batch 500, 10 heads of 128
     clusters, lambda 25, multistep), cut to 2 epochs through the CLI:
     relabelling epochs {0, 1}, so two sweeps run (`pre_train` and epoch 1's
-    start), each timed; the pseudo-labels use more than one cluster."""
+    start), each timed; the pseudo-labels use more than one cluster. The run
+    has `SSV_TPU_PROFILE_DIR` set: `_check_trace` reads the trace of epoch
+    2."""
     from ssv_tpu_torch import main as cli
     from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.train.trainer import STEADY_AFTER
@@ -995,12 +1015,18 @@ def phase_sela(card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["-c", _config(tmp, "sela", epochs=2, eval_every=1), "-m", "resnet18",
                 "-a", "sela", "-t", "train", "-o", os.path.join(tmp, "run")]
+        profile_dir = os.path.join(tmp, "profile")
         held = _held_before_run("sela")
         fused_photometric.launches = 0
-        with _Hooks(self_label=timed):
-            trainer = cli.main(argv)
+        os.environ["SSV_TPU_PROFILE_DIR"] = profile_dir
+        try:
+            with _Hooks(self_label=timed):
+                trainer = cli.main(argv)
+        finally:
+            del os.environ["SSV_TPU_PROFILE_DIR"]
         launches = fused_photometric.launches
         torch.cuda.synchronize()
+        trace = _check_trace(profile_dir, trainer.epoch_stats[1]["steps"], card)
     peak = torch.cuda.max_memory_allocated() - held
     stats = trainer.epoch_stats
     steps = trainer.state.step
@@ -1028,7 +1054,42 @@ def phase_sela(card: str) -> dict:
     return {"launches": launches, "steps": steps,
             "img_per_s": [e["steady_img_per_s"] for e in stats], "peak_bytes": peak,
             "held_bytes": held, "sweeps": sweeps, "clusters": clusters,
-            "best_head": best_head, "linear_eval": probe}
+            "best_head": best_head, "linear_eval": probe, "trace": trace}
+
+
+def _check_trace(profile_dir: str, steps: int, card: str) -> dict:
+    """The profile hook's output: one Chrome trace, `epoch2.rank0.json`, with
+    the span `epoch 2` and no other epoch's, a span `step <s>` for each of
+    epoch 2's `steps` steps, and one photometric kernel on the device a step
+    (SeLA's one augmented view), inside the epoch's span."""
+    files = sorted(os.listdir(profile_dir))
+    if files != ["epoch2.rank0.json"]:
+        raise AssertionError(f"profile hook: wrote {files}, expected one trace of epoch 2")
+    path = os.path.join(profile_dir, files[0])
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"]
+    epochs = [e for e in spans if e["name"].startswith("epoch ")]
+    step_names = {e["name"] for e in spans if e["name"].startswith("step ")}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "photometric_kernel" in e["name"]]
+    if [e["name"] for e in epochs] != ["epoch 2"]:
+        raise AssertionError(f"profile hook: epoch spans {[e['name'] for e in epochs]}")
+    start, end = epochs[0]["ts"], epochs[0]["ts"] + epochs[0]["dur"]
+    inside = sum(start <= k["ts"] <= end for k in kernels)
+    print(f"[profile] SSV_TPU_PROFILE_DIR on the SeLA run: one trace {files[0]} "
+          f"({size / 2**20:.1f} MiB, {len(events):,} spans and kernels); the span `epoch 2` "
+          f"({epochs[0]['dur'] / 1e3:.1f} ms), {len(step_names)} step spans for {steps} "
+          f"steps, {len(kernels)} photometric kernels on the device ({inside} inside the "
+          f"epoch's span) | {card}")
+    if step_names != {f"step {s}" for s in range(steps)}:
+        raise AssertionError(f"profile hook: {len(step_names)} step spans for {steps} steps")
+    if len(kernels) != LAUNCHES_PER_STEP["sela"] * steps or inside != len(kernels):
+        raise AssertionError(f"profile hook: {len(kernels)} photometric kernels, {inside} "
+                             f"inside epoch 2, for {steps} steps")
+    return {"bytes": size, "events": len(events), "kernels": len(kernels),
+            "epoch_ms": epochs[0]["dur"] / 1e3}
 
 
 # DINO's ViT runs DINO_LAYERS of configs/dino.yaml's 6 layers here, at its
@@ -1217,6 +1278,180 @@ def phase_deep_cluster(card: str) -> dict:
         raise AssertionError(f"deep_cluster: expected one clustering an epoch: {secs}")
     out.update(seconds=secs, kmeans_bound_s=bound_s, labels_in_use=used)
     return out
+
+
+# ----------------------------------------------------------------------
+# the quality runner and the sweep
+# ----------------------------------------------------------------------
+class _Tee:
+    """Writes to stdout and keeps a copy."""
+
+    def __init__(self):
+        self.out, self.lines = sys.stdout, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _strict_rows(text: str) -> list[dict]:
+    """The JSON lines of a run's output, parsed strictly (NaN, Infinity and
+    -Infinity refused)."""
+    def refuse(name):
+        raise AssertionError(f"a JSON line holds the bare constant {name}")
+
+    return [json.loads(line, parse_constant=refuse)
+            for line in text.splitlines() if line.startswith("{")]
+
+
+def _quality_main(argv: list[str]) -> tuple[int, dict]:
+    """`python -m ssv_tpu_torch.tools.quality_run <argv>` in this process:
+    its exit code and its one row, parsed strictly."""
+    import contextlib
+
+    from ssv_tpu_torch.tools import quality_run
+
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        rc = quality_run.main(argv)
+    rows = _strict_rows("".join(tee.lines))
+    if len(rows) != 1:
+        raise AssertionError(f"quality_run printed {len(rows)} JSON lines: {rows}")
+    return rc, rows[0]
+
+
+QUALITY_EPOCHS = 2
+
+
+def phase_quality(card: str) -> dict:
+    """The quality runner through its entry point: SimCLR ResNet-18 from the
+    shipped configs/simclr.yaml on synth100 at full size (50,000 / 10,000),
+    QUALITY_EPOCHS epochs with a KNN each and the probe: the JSON line
+    strict, one curve point an epoch, the probe's accuracy in (0, 1], 2
+    photometric launches a step. Then SimCLR on `tiny` (synth100 at 5,120 /
+    1,024) with epoch 1's parameters filled with NaN by a `pre_epoch` hook:
+    `nan_at` 1, `linear` null, the probe never called."""
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.train.trainer import Trainer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        held = _held_before_run("quality simclr")
+        fused_photometric.launches = 0
+        rc, row = _quality_main(
+            ["--algos", "simclr", "--epochs", str(QUALITY_EPOCHS), "--eval-every", "1",
+             "--dataset", "synth100", "--tag", "smoke", "--out", os.path.join(tmp, "smoke.md")])
+        launches = fused_photometric.launches
+        peak = torch.cuda.max_memory_allocated() - held
+        with open(os.path.join(tmp, "smoke.md")) as f:
+            table = f.read()
+    steps = QUALITY_EPOCHS * (50000 // 512)
+    print(f"[quality] simclr resnet18 synth100 ({row.get('resolved_dataset')}): exit {rc}, "
+          f"KNN curve {row.get('knn_curve')}, linear {row.get('linear')}, best epoch "
+          f"{row.get('img_per_sec')} img/s (host clock), {row.get('wall_s')} s; {launches} "
+          f"photometric launches for {steps} steps; peak memory {_gib(peak)} above the "
+          f"{_gib(held)} held before | {card}")
+    if rc != 0 or "error" in row:
+        raise AssertionError(f"quality: exit {rc}, row {row}")
+    if len(row["knn_curve"]) != QUALITY_EPOCHS or not 0.0 < row["linear"] <= 1.0:
+        raise AssertionError(f"quality: curve {row['knn_curve']}, linear {row['linear']}")
+    if "| simclr | 512 |" not in table:
+        raise AssertionError(f"quality: the table holds no simclr row:\n{table}")
+    _check_launches("simclr", launches, steps)
+    out["main"] = {"launches": launches, "steps": steps, "row": row, "peak_bytes": peak}
+
+    probes = []
+
+    def nan_at_epoch_1(pre_epoch):
+        def hook(state, trainer, epoch):
+            if epoch == 1:
+                with torch.no_grad():
+                    for p in state.model.parameters():
+                        p.fill_(float("nan"))
+            return pre_epoch(state, trainer, epoch)
+        return hook
+
+    def counted(self):
+        probes.append(1)
+        return probe(self)
+
+    probe = Trainer.perform_linear_eval
+    with tempfile.TemporaryDirectory() as tmp:
+        _held_before_run("quality nan")
+        fused_photometric.launches = 0
+        Trainer.perform_linear_eval = counted
+        try:
+            with _Hooks(pre_epoch=nan_at_epoch_1):
+                rc, row = _quality_main(
+                    ["--algos", "simclr", "--arch", "tiny", "--epochs", "2", "--eval-every",
+                     "1", "--dataset", "synth100", "--n-train", "5120", "--n-test", "1024",
+                     "--tag", "nan", "--out", os.path.join(tmp, "nan.md")])
+        finally:
+            Trainer.perform_linear_eval = probe
+        nan_launches = fused_photometric.launches
+    print(f"[quality] simclr tiny with NaN parameters at epoch 1: exit {rc}, nan_at "
+          f"{row.get('nan_at')}, KNN curve {row.get('knn_curve')}, linear {row.get('linear')}, "
+          f"probe calls {len(probes)}, the JSON line strict; {nan_launches} photometric "
+          f"launches")
+    if rc != 0 or row.get("nan_at") != 1 or row.get("linear") is not None or probes:
+        raise AssertionError(f"quality NaN case: exit {rc}, row {row}, {len(probes)} probes")
+    _check_launches("simclr", nan_launches, 5120 // 512)
+    out["nan"] = {"launches": nan_launches, "row": row}
+    return out
+
+
+# the sweep's rows here: 2 epochs on half the tool's train split (5,120 /
+# 1,024), since its DINO row alone takes about 64 s an epoch at 10,240
+# (1,280 host-bound steps of batch 8)
+SWEEP_EPOCHS = 2
+SWEEP_SIZES = (5120, 1024)
+
+
+def phase_sweep(card: str) -> dict:
+    """The 12 rows of `python -m ssv_tpu_torch.tools.sweep` through its
+    entry point, SWEEP_EPOCHS epochs each on SWEEP_SIZES, `--no-write`: no
+    error row, finite
+    losses, a KNN in [0, 1], the photometric launches per step of each
+    algorithm; each row's img/s beside its committed floor (printed, not a
+    gate: one call's host decides it)."""
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.tools import sweep
+
+    with tempfile.TemporaryDirectory() as tmp:
+        results = os.path.join(tmp, "results.json")
+        held = _held_before_run("sweep")
+        fused_photometric.launches = 0
+        rc = sweep.main([str(SWEEP_EPOCHS), "--no-write", "--results", results,
+                         "--n-train", str(SWEEP_SIZES[0]), "--n-test", str(SWEEP_SIZES[1]),
+                         "--table", os.path.join(tmp, "table.md")])
+        launches = fused_photometric.launches
+        peak = torch.cuda.max_memory_allocated() - held
+        with open(results) as f:
+            run = json.load(f)
+    floors = sweep.load_floors()
+    algo_of = {name: algo for name, algo, *_ in sweep.SWEEP}
+    out = {}
+    for r in run["results"]:
+        name = r["algo"]
+        if "error" in r:
+            raise AssertionError(f"sweep row {name}: {r['error']}")
+        floor = floors["floors"].get(name)
+        ratio = f"{r['img_per_sec'] / floor:.3f} of its floor {floor:,}" if floor else "no floor"
+        print(f"[sweep] {name} {r['arch']} batch {r['batch']}: losses {r['losses']}, KNN "
+              f"{r['knn']}, best epoch {r['img_per_sec']:,} img/s ({ratio}), {r['wall_s']} s; "
+              f"{r['photometric_launches']} photometric launches for {r['steps']} steps | {card}")
+        if not all(map(math.isfinite, r["losses"])) or not 0.0 <= r["knn"] <= 1.0:
+            raise AssertionError(f"sweep row {name}: {r}")
+        _check_launches(algo_of[name], r["photometric_launches"], r["steps"])
+        out[name] = r
+    if rc != 0 or [r["algo"] for r in run["results"]] != [s[0] for s in sweep.SWEEP]:
+        raise AssertionError(f"sweep: exit {rc}, rows {[r['algo'] for r in run['results']]}")
+    print(f"[sweep] {len(out)} rows, {launches} photometric launches; floors from "
+          f"{floors.get('card')}; peak memory {_gib(peak)} above the {_gib(held)} held before")
+    return {"launches": launches, "rows": out}
 
 
 # ----------------------------------------------------------------------
@@ -1503,6 +1738,10 @@ def main() -> None:
                         ("dino", phase_dino), ("pirl", phase_pirl),
                         ("deep_cluster", phase_deep_cluster)):
         paths[name] = _timed(name, phase, card)["launches"]
+    quality = _timed("quality", phase_quality, card)
+    paths.update({"quality": quality["main"]["launches"],
+                  "quality-nan": quality["nan"]["launches"]})
+    paths["sweep"] = _timed("sweep", phase_sweep, card)["launches"]
     ddp = _timed("ddp", phase_ddp, card, slice_out)
     paths["ddp-torchrun"] = ddp["a"]["launches"]
     paths.update({f"ddp-gloo-{mode}": ddp["b"][mode]["launches"]

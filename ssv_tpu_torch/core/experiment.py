@@ -31,15 +31,17 @@ def seed_everything(seed: int = DEFAULT_SEED) -> int:
 
 
 def initialize_experiment(args: dict, output_root: str, device: torch.device,
-                          seed: int = DEFAULT_SEED):
-    """Returns (config, output_dir, logger)."""
+                          seed: int = DEFAULT_SEED, make_dirs: bool = True):
+    """Returns (config, output_dir, logger). With `make_dirs=False` the
+    output directory is named but not created, and nothing is written."""
     seed_everything(seed)
     config = load_config(args["config"])
 
     output_dir = os.path.join(output_root, args.get("output") or dt.now().strftime("%d-%m-%Y_%H-%M"))
-    os.makedirs(output_dir, exist_ok=True)
-    logger = Logger(output_dir)
-    if not logger.quiet:   # rank 0 writes
+    if make_dirs:
+        os.makedirs(output_dir, exist_ok=True)
+    logger = Logger(output_dir if make_dirs else None)
+    if make_dirs and not logger.quiet:   # rank 0 writes
         with open(os.path.join(output_dir, "hyperparameters.txt"), "w") as f:
             f.write(_render(config.raw()))
 

@@ -24,14 +24,14 @@ from .multicrop import MultiCrop
 
 
 class DataPipeline:
-    def __init__(self, data_cfg: dict, device: torch.device,
+    def __init__(self, data_cfg: dict, device: torch.device, allow_synthetic: bool = True,
                  synthetic_sizes: tuple[int, int] | None = None):
         cfg = dict(data_cfg)
         self.device = torch.device(device)
         self.batch_size = int(cfg["batch_size"])
         self.dataset: Dataset = load_dataset(
             cfg["dataset_name"], cfg.get("root", "data"),
-            synthetic_sizes=synthetic_sizes)
+            allow_synthetic=allow_synthetic, synthetic_sizes=synthetic_sizes)
         self.num_classes = self.dataset.num_classes
         self.transforms_cfg = cfg.get("transforms")
         self.multicrop_cfg = cfg.get("multicrop_config")

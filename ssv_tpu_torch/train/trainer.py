@@ -7,7 +7,8 @@ An epoch is a Python loop of steps over a (steps, batch) index matrix drawn
 on the device; augmentation, forward, backward and the optimizer update all
 stay on the device, and the per-step losses are read to the host once per
 epoch. `train_safe()` flushes `latest` on an interrupt or error, and
-`args["load"]` resumes from a run's directory.
+`args["load"]` resumes from a run's directory. With `SSV_TPU_PROFILE_DIR`
+set, `train()` writes a `torch.profiler` trace of one epoch there.
 
 Under a process group (`parallel/`, started by `python -m
 ssv_tpu_torch.main` under torchrun) every rank builds the same state,
@@ -21,12 +22,14 @@ rank 0 writes checkpoints, logs and the epoch records.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
 
 import torch
 
+from ..core.config import _merge
 from ..core.experiment import DEFAULT_SEED, initialize_experiment
 from ..data.pipeline import DataPipeline
 from ..evals.knn import compute_neighbor_accuracy
@@ -53,12 +56,24 @@ def default_device(device: torch.device | str | None = None) -> torch.device:
 
 
 class Trainer:
-    def __init__(self, args: dict, device: torch.device | str | None = None,
-                 synthetic_sizes: tuple[int, int] | None = None):
-        """`synthetic_sizes` (train, test) sizes the synthetic dataset used
-        where the config's dataset is not on disk, as the JAX Trainer's."""
+    def __init__(self, args: dict, overrides: dict | None = None,
+                 allow_synthetic: bool = True,
+                 synthetic_sizes: tuple[int, int] | None = None,
+                 make_dirs: bool = True, seed: int = DEFAULT_SEED,
+                 device: torch.device | str | None = None):
+        """The JAX Trainer's arguments, with its meanings: `overrides` is
+        merged into the loaded config (`core.config._merge`);
+        `allow_synthetic=False` raises where the config's dataset is not on
+        disk, else `synthetic_sizes` (train, test) sizes the synthetic
+        stand-in; `make_dirs=False` creates no output directory and writes
+        no file there; `seed` seeds the host RNGs, the weights' host
+        generator and rank r's device generator (`seed + r`). The JAX
+        Trainer's `use_mesh` has no counterpart: the ranks come from
+        torchrun (`parallel/`). `device` is the port's own: CUDA unless the
+        CPU is asked for."""
         self.device = default_device(device)
         self.args = dict(args)
+        self.make_dirs = make_dirs
         # float32 matmuls and convolutions stay float32 (the bf16 autocast
         # region is where the speed comes from); stated, not left to defaults
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -67,14 +82,18 @@ class Trainer:
         algo_name, arch = args["algo"], args["arch"]
         output_root = os.path.join("outputs", algo_name, arch)
         config, self.output_dir, self.logger = initialize_experiment(
-            self.args, output_root, self.device, seed=DEFAULT_SEED)
-        cfg = self.config = config.raw()
+            self.args, output_root, self.device, seed=seed, make_dirs=make_dirs)
+        cfg = config.raw()
+        if overrides:
+            cfg = _merge(cfg, overrides)
+        self.config = cfg
 
         self.wandb = get_wandb()
         self.wandb.init(project=(cfg.get("wandb") or {}).get("project"),
-                        output_dir=self.output_dir)
+                        output_dir=self.output_dir if make_dirs else None)
 
-        self.pipeline = DataPipeline(cfg["data"], self.device, synthetic_sizes=synthetic_sizes)
+        self.pipeline = DataPipeline(cfg["data"], self.device, allow_synthetic=allow_synthetic,
+                                     synthetic_sizes=synthetic_sizes)
         self.data_info = DataInfo(
             num_classes=self.pipeline.num_classes,
             n_train=self.pipeline.n_train,
@@ -90,10 +109,9 @@ class Trainer:
         # a rank, rank 0's of the run's seed); the weights from a host
         # generator of the seed, the same on every rank, and rank 0's copy
         # is put on every rank
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            DEFAULT_SEED + rank())
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + rank())
         self.state: TrainState = self.algorithm.init_state(
-            torch.Generator().manual_seed(DEFAULT_SEED))
+            torch.Generator().manual_seed(seed))
         for module in (self.state.model, *self.state.extra.values()):
             replicate(module)
 
@@ -103,6 +121,7 @@ class Trainer:
         self.start_epoch = 1
         self.epoch_stats: list[dict] = []
         self.linear_eval_stats: dict | None = None
+        self._tracing = False   # inside `_trace`: each step is a profiler span
 
         if self.args.get("load"):
             self.load_checkpoint(self.args["load"])
@@ -218,14 +237,18 @@ class Trainer:
     # ------------------------------------------------------------------
     def _run_epoch(self, state: TrainState, idx_mat: torch.Tensor):
         """All steps of one epoch. Returns (state, {metric: (steps,) host
-        tensor}, steady-state img/s or None off CUDA)."""
+        tensor}, steady-state img/s or None off CUDA). Under `_trace` each
+        step is a span `step <s>`."""
         images, labels = self.pipeline.arrays("train")
         cuda = self.device.type == "cuda"
         collected: dict[str, list] = {}
         events = []
         for s in range(idx_mat.shape[0]):
-            batch = self._batch_fn(images, labels, batch_slice(idx_mat[s]), self.generator)
-            state, metrics = self.algorithm.train_step(state, batch, self.generator)
+            with (torch.profiler.record_function(f"step {s}") if self._tracing
+                  else contextlib.nullcontext()):
+                batch = self._batch_fn(images, labels, batch_slice(idx_mat[s]),
+                                       self.generator)
+                state, metrics = self.algorithm.train_step(state, batch, self.generator)
             for k, v in metrics.items():
                 collected.setdefault(k, []).append(v)
             if cuda:
@@ -250,9 +273,34 @@ class Trainer:
     def _record(self, stats: dict) -> None:
         """Appends an epoch's record to `<output_dir>/epoch_stats.jsonl`
         (rank 0)."""
-        if rank() == 0:
+        if rank() == 0 and self.make_dirs:
             with open(os.path.join(self.output_dir, "epoch_stats.jsonl"), "a") as f:
                 f.write(json.dumps(stats) + "\n")
+
+    @contextlib.contextmanager
+    def _trace(self, profile_dir: str, epoch: int):
+        """A `torch.profiler` of the CPU (and CUDA) activities over the
+        block, inside a span `epoch <epoch>`; at the end (the device
+        synchronized) its Chrome trace JSON goes to
+        `<profile_dir>/epoch<epoch>.rank<r>.json`."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as profiler:
+            with record_function(f"epoch {epoch}"):
+                self._tracing = True
+                try:
+                    yield
+                finally:
+                    self._tracing = False
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        os.makedirs(profile_dir, exist_ok=True)
+        path = os.path.join(profile_dir, f"epoch{epoch}.rank{rank()}.json")
+        profiler.export_chrome_trace(path)
+        self.logger.print(f"Profiler trace written to {path}", mode="info")
 
     def train(self) -> float:
         """Runs the epochs from `start_epoch`; returns the final linear
@@ -263,14 +311,21 @@ class Trainer:
         else:
             # resumed: the algorithm's state came from the checkpoint
             state = self.state
+        # SSV_TPU_PROFILE_DIR: a trace of this run's second epoch, the first
+        # after cuDNN's algorithm choice and the allocator's growth; pinned
+        # now, since start_epoch advances in the loop
+        profile_dir = os.environ.get("SSV_TPU_PROFILE_DIR")
+        profile_epoch = self.start_epoch + 1
         for epoch in range(self.start_epoch, self.epochs + 1):
             state = self.algorithm.pre_epoch(state, self, epoch)
             idx_mat = self.epoch_indices()
             launches = fused_photometric.launches
-            t0 = time.perf_counter()
-            state, metrics, steady = self._run_epoch(state, idx_mat)
-            state = self.algorithm.post_epoch(state, epoch)
-            dt = time.perf_counter() - t0
+            tracing = bool(profile_dir) and epoch == profile_epoch
+            with (self._trace(profile_dir, epoch) if tracing else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                state, metrics, steady = self._run_epoch(state, idx_mat)
+                state = self.algorithm.post_epoch(state, epoch)
+                dt = time.perf_counter() - t0
             self.state = state
             self.start_epoch = epoch + 1
             means = {k: float(v.mean()) for k, v in metrics.items()}

@@ -9,6 +9,7 @@ data-parallel tests spawn (`run_ranks`) import this module and run only the
 port.
 """
 
+import importlib.util
 import os
 import pickle
 import tempfile
@@ -403,6 +404,46 @@ def cli_rank(argv):
            "rank": int(os.environ["RANK"]), "world": int(os.environ["WORLD_SIZE"])}
     with open(f"{prefix}{out['rank']}.json", "w") as f:
         json.dump(out, f)
+
+
+def load_script(name: str):
+    """scripts/<name>.py as a module (importing it runs nothing)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        f"jax_scripts_{name}", os.path.join(repo, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class TmpRedirect:
+    """Stands in for a script's `os` module and `open`, moving its fixed
+    `/tmp/...` paths under `root`."""
+
+    def __init__(self, root):
+        self.root = str(root)
+
+    def moved(self, p):
+        return os.path.join(self.root, p[len("/tmp/"):]) if str(p).startswith("/tmp/") else p
+
+    def makedirs(self, p, exist_ok=False):
+        os.makedirs(self.moved(p), exist_ok=exist_ok)
+
+    def chdir(self, p):
+        os.chdir(self.moved(p))
+
+    def open(self, p, *args, **kwargs):
+        return open(self.moved(p), *args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(os, name)
+
+
+def redirect_tmp(monkeypatch, module, root) -> TmpRedirect:
+    redirect = TmpRedirect(root)
+    monkeypatch.setattr(module, "os", redirect)
+    monkeypatch.setattr(module, "open", redirect.open, raising=False)
+    return redirect
 
 
 if __name__ == "__main__":
