@@ -97,6 +97,19 @@ and 8 (the batch that row runs).
 Phase `sweep` runs the 12 rows of `python -m ssv_tpu_torch.tools.sweep` (the
 synthetic set cut to SWEEP_SIZES, SWEEP_EPOCHS epochs each) and prints each
 row's img/s beside its committed floor; the floors are no gate here.
+Phase `tp` runs the model axis (SwAV's prototype table sharded over a
+model group) on ranks sharing the card over gloo: (a) SwAV ResNet-18 at
+configs/swav.yaml's widths at data 1 x model 2 (1,500 prototype rows a
+rank), two float32 steps on given views against the one-process step
+(the loss 1e-5 relative, the gathered table and the tower: params 1e-4, BN
+statistics 1e-5), then 20 bf16 steps at batch 512 (finite losses, the tower
+and the bank bit for bit the same on both ranks, 2 launches a step a rank;
+the collectives, MB and host ms a step); (b) the dry run's DPxTP phase at
+4 ranks (2 x 2) on CUDA tensors; (c) the native IO library built by g++,
+its CIFAR binary reader against its NumPy version bit for bit on a
+50,000 + 10,000-row binary directory written from a seed, and two
+`load_dataset` calls, the first writing the `.raw` cache and the second
+reading it, both timed.
 Every training phase checks the photometric launches per train step (two,
 one for SeLA's single augmented view; DeepCluster builds and pays for the
 `aug_2` it never reads), prints its steady img/s and its peak
@@ -1684,6 +1697,307 @@ def phase_ddp(card: str, slice_out: dict) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# the model axis: SwAV's prototype table sharded over a model group
+# ----------------------------------------------------------------------
+TP_STEPS = 20           # bf16 steps of part (a)
+TP_TIMEOUT_S = 400      # each spawn's limit, and each collective's wait
+
+
+def _swav_f32(device):
+    """SwAV ResNet-18 at configs/swav.yaml's widths (batch 512, hidden 512,
+    proj 128, 3000 prototypes, bank 3000) in float32, SGD at lr 0.1 from the
+    first step (the dry run's: the shipped 2.0 without its warmup makes two
+    steps chaotic, and with it the first lr is 1e-12), its state from the
+    seed-0 host generator, the bank filled with unit rows and the given
+    views of two steps from a numpy seed: the same in every process."""
+    import numpy as np
+    import yaml
+
+    from ssv_tpu_torch.objectives.losses import l2_normalize
+    from ssv_tpu_torch.state.banks import ring_push
+    from ssv_tpu_torch.train.base import DataInfo
+    from ssv_tpu_torch.train.registry import build_algorithm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(HERE, "configs", "swav.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.update(compute_dtype="float32", epochs=1,
+               scheduler={"name": "cosine", "warmup_epochs": 0})
+    cfg["optimizer"]["lr"] = 0.1
+    b = cfg["data"]["batch_size"]
+    algo = build_algorithm("swav", cfg, "resnet18", DataInfo(10, 50000, b, 50000 // b), device)
+    state = algo.init_state(torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(0)
+    bank = rs.randn(cfg["feature_bank_size"], cfg["proj_dim"]).astype(np.float32)
+    ring_push(state.extra["bank"], l2_normalize(torch.from_numpy(bank)).to(device))
+    views = [{k: torch.from_numpy(rs.randn(b, 32, 32, 3).astype(np.float32))
+              for k in ("aug_1", "aug_2")} for _ in range(2)]
+    return algo, state, views
+
+
+def _swav_bf16_steps(device) -> dict:
+    """TP_STEPS bf16 SwAV steps from configs/swav.yaml on the synthetic
+    CIFAR-10, each rank's batch drawn from a generator keyed by its data
+    rank; the collectives, their bytes and host seconds a step."""
+    import yaml
+
+    from ssv_tpu_torch.data.pipeline import DataPipeline
+    from ssv_tpu_torch.objectives.losses import l2_normalize
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.parallel import batch_slice, mesh, per_device
+    from ssv_tpu_torch.parallel.dryrun import digest
+    from ssv_tpu_torch.state.banks import ring_push
+    from ssv_tpu_torch.train.base import DataInfo
+    from ssv_tpu_torch.train.registry import build_algorithm
+
+    with open(os.path.join(HERE, "configs", "swav.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    b = cfg["data"]["batch_size"]
+    pipeline = DataPipeline(cfg["data"], device, synthetic_sizes=(b * TP_STEPS, b))
+    algo = build_algorithm("swav", cfg, "resnet18",
+                           DataInfo(10, pipeline.n_train, b, TP_STEPS), device)
+    state = algo.init_state(torch.Generator().manual_seed(0))
+    rows = torch.randn(cfg["feature_bank_size"], cfg["proj_dim"],
+                       generator=torch.Generator().manual_seed(1))
+    ring_push(state.extra["bank"], l2_normalize(rows).to(device))
+    images, labels = pipeline.arrays("train")
+    batch_fn = pipeline.make_batch_fn("double")
+    generator = torch.Generator(device=device).manual_seed(mesh.data_rank())
+    idx_mat = torch.arange(b * TP_STEPS, device=device).reshape(TP_STEPS, b)
+    losses = []
+    fused_photometric.launches = 0
+    for s in range(TP_STEPS):
+        if s == TP_STEPS // 2:       # the second half is timed
+            torch.cuda.synchronize(device)
+            per_device.collectives.reset()
+            t0 = time.perf_counter()
+        state, m = algo.train_step(
+            state, batch_fn(images, labels, batch_slice(idx_mat[s]), generator), generator)
+        losses.append(m["loss"].item())
+    torch.cuda.synchronize(device)
+    timed = TP_STEPS - TP_STEPS // 2
+    seconds = time.perf_counter() - t0
+    coll = per_device.collectives
+    out = {"losses": losses, "launches": fused_photometric.launches,
+           "tower": digest(state.model.tower, state.extra["bank"]),
+           "shard": digest(state.model.prototypes), "step_ms": 1e3 * seconds / timed,
+           "collectives_per_step": coll.calls / timed, "mb_per_step": coll.bytes / timed / 1e6,
+           "collective_ms_per_step": 1e3 * coll.seconds / timed,
+           "shard_rows": state.model.prototypes.table.shape[0]}
+    del algo, state, pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank: int, world: int, part: str, tmp: str) -> None:
+    """One rank on the one card over gloo: part "a" at (1 x 2), part "b" the
+    dry run's DPxTP phase at 4 ranks."""
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.parallel import batch_slice, dryrun, mesh
+
+    device = mesh.init("cuda:0", backend="gloo", init_method=f"file://{tmp}/group-{part}",
+                       rank=rank, world_size=world, timeout_s=TP_TIMEOUT_S,
+                       model_parallel=2 if part == "a" else 1)
+    try:
+        if part == "a":
+            algo, state, views = _swav_f32(device)
+            losses = []
+            for batch in views:
+                state, m = algo.train_step(
+                    state, {k: batch_slice(v).to(device) for k, v in batch.items()})
+                losses.append(m["loss"].item())
+            out = {"losses": losses,
+                   "state": {k: v.cpu() for k, v in state.model.state_dict().items()}}
+            del algo, state
+            out["bf16"] = _swav_bf16_steps(device)
+        else:
+            fused_photometric.launches = 0
+            dryrun.phase_dp_tp_swav(device)
+            out = {"launches": fused_photometric.launches}
+    finally:
+        mesh.destroy()
+    torch.save(out, os.path.join(tmp, f"{part}-rank{rank}.pt"))
+
+
+def _spawn_ranks(world: int, part: str, tmp: str) -> list[dict]:
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_tp_rank, args=(world, part, tmp), nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"tp ({part}): the ranks did not end in {TP_TIMEOUT_S} s")
+    return [torch.load(os.path.join(tmp, f"{part}-rank{r}.pt"), weights_only=True)
+            for r in range(world)]
+
+
+def _cifar_binary_dir(root: str) -> dict:
+    """A cifar-10-batches-bin directory at the real layout's size (5 train
+    files of 10,000 rows, a test file of 10,000) from a numpy seed."""
+    import numpy as np
+
+    d = os.path.join(root, "cifar-10-batches-bin")
+    os.makedirs(d)
+    rs = np.random.RandomState(0)
+    files = {}
+    for name in [f"data_batch_{i}.bin" for i in range(1, 6)] + ["test_batch.bin"]:
+        rows = rs.randint(0, 256, size=(10000, 1 + 3072)).astype(np.uint8)
+        rows[:, 0] %= 10
+        path = os.path.join(d, name)
+        rows.tofile(path)
+        files[name] = path
+    return files
+
+
+def _phase_native_io(card: str) -> dict:
+    """(c): the native library built by g++ here, each binary file read by
+    it and by its NumPy version (bit for bit), the pickle layout's repack
+    likewise, then `load_dataset` twice: the first reads the binaries and
+    writes the `.raw` cache, the second reads the cache."""
+    import numpy as np
+
+    from ssv_tpu_torch.data import datasets, native_io
+    from ssv_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    native_io.available()
+    build_s = time.perf_counter() - t0
+    out = {"build_s": build_s}
+    with tempfile.TemporaryDirectory() as root:
+        files = _cifar_binary_dir(root)
+        native_s = numpy_s = 0.0
+        for path in files.values():
+            t0 = time.perf_counter()
+            got = native_io.read_cifar_binary(path, 1, 10000)
+            native_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = native_io.read_cifar_binary_numpy(path, 1, 10000)
+            numpy_s += time.perf_counter() - t0
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)) or len(got[0]) != 10000:
+                raise AssertionError(f"native IO: {path} differs from the NumPy reader")
+        chw = np.ascontiguousarray(got[0].transpose(0, 3, 1, 2))
+        t0 = time.perf_counter()
+        hwc = native_io.chw_to_hwc(chw)
+        repack_s = time.perf_counter() - t0
+        if not np.array_equal(hwc, native_io.chw_to_hwc_numpy(chw)):
+            raise AssertionError("native IO: chw_to_hwc differs from the NumPy repack")
+        times, loads = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            loads.append(datasets.load_dataset("cifar10", root, allow_synthetic=False))
+            times.append(time.perf_counter() - t0)
+            ds = loads[-1]
+            if ds.synthetic or ds.train.images.shape != (50000, 32, 32, 3):
+                raise AssertionError(f"native IO: load_dataset gave {ds.train.images.shape}, "
+                                     f"synthetic {ds.synthetic}")
+        cache = os.path.join(root, "cifar10_train.raw")
+        if not os.path.isfile(cache):
+            raise AssertionError("native IO: the first load wrote no cache")
+        for split in ("train", "test"):
+            a, b = getattr(loads[0], split), getattr(loads[1], split)
+            if not (np.array_equal(a.images, b.images) and np.array_equal(a.labels, b.labels)):
+                raise AssertionError(f"native IO: the cache's {split} split differs")
+        cache_mb = (os.path.getsize(cache)
+                    + os.path.getsize(os.path.join(root, "cifar10_test.raw"))) / 1e6
+    print(f"[tp] (c) native IO: {os.path.basename(str(build.library_path('ssv_io')))} built "
+          f"by g++ in {build_s:.2f} s; 6 binary files of 10,000 rows: library "
+          f"{native_s:.3f} s, NumPy {numpy_s:.3f} s, bit for bit; chw_to_hwc of 10,000 "
+          f"images {1e3 * repack_s:.1f} ms, the same as NumPy's")
+    print(f"[tp] (c) load_dataset cifar10, 50,000 + 10,000: first (binaries, writes a "
+          f"{cache_mb:.1f} MB cache) {times[0]:.3f} s, second (the cache) {times[1]:.3f} s, "
+          f"the same arrays | {card}")
+    out.update(native_s=native_s, numpy_s=numpy_s, repack_s=repack_s, first_load_s=times[0],
+               cached_load_s=times[1])
+    return out
+
+
+def phase_tp(card: str) -> dict:
+    """The model axis on the one card (ranks sharing it over gloo, as NCCL
+    refuses two ranks on one device).
+
+    (a) SwAV ResNet-18 at configs/swav.yaml's widths on 2 ranks as data 1 x
+    model 2, 1,500 prototype rows a rank: two float32 steps on given views
+    against the one-process step (the loss 1e-5 relative, the gathered table
+    and the tower: params 1e-4, BN statistics 1e-5); then TP_STEPS bf16
+    steps: finite losses, the tower and the bank bit for bit the same on
+    both ranks, the shards distinct, 2 photometric launches a step a rank at
+    B = 512; the collectives a step, MB a step and host ms inside them.
+    (b) the dry run's DPxTP phase at 4 ranks (2 x 2) on CUDA tensors.
+    (c) the native IO library (`_phase_native_io`)."""
+    out = {}
+    algo, state, views = _swav_f32("cuda")
+    global_batch = views[0]["aug_1"].shape[0]
+    ref_losses = []
+    for batch in views:
+        state, m = algo.train_step(state, {k: v.cuda() for k, v in batch.items()})
+        ref_losses.append(m["loss"].item())
+    ref = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    del algo, state, views
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(2, "a", tmp)
+        seconds_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dry = _spawn_ranks(4, "b", tmp)
+        seconds_b = time.perf_counter() - t0
+    got = dict(ranks[0]["state"])
+    got["prototypes.table"] = torch.cat([r["state"]["prototypes.table"] for r in ranks])
+    param_err = max((got[k].float() - v.float()).abs().max().item()
+                    for k, v in ref.items() if k.endswith(("weight", "bias", "table")))
+    stat_err = max((got[k] - v).abs().max().item()
+                   for k, v in ref.items() if k.endswith(("running_mean", "running_var")))
+    table_err = (got["prototypes.table"] - ref["prototypes.table"]).abs().max().item()
+    loss_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["losses"], ref_losses))
+    print(f"[tp] (a) float32 SwAV ResNet-18 at 1 x 2 (data x model), "
+          f"{got['prototypes.table'].shape[0]:,} prototypes, "
+          f"{ranks[0]['state']['prototypes.table'].shape[0]:,} a rank, global batch "
+          f"{global_batch}, two steps against one process: the gathered table within {table_err:.3e}, every "
+          f"param {param_err:.3e}, BN statistics {stat_err:.3e}, losses {loss_err:.3e} "
+          f"relative")
+    if param_err > 1e-4 or stat_err > 1e-5 or loss_err > 1e-5:
+        raise AssertionError("tp (a): the 1 x 2 float32 step differs from one process's")
+    r0, r1 = ranks[0]["bf16"], ranks[1]["bf16"]
+    if not all(map(math.isfinite, r0["losses"] + r1["losses"])):
+        raise AssertionError("tp (a) bf16: non-finite losses")
+    if r0["tower"] != r1["tower"] or r0["losses"] != r1["losses"]:
+        raise AssertionError("tp (a) bf16: the ranks' towers, banks or losses differ")
+    if r0["shard"] == r1["shard"]:
+        raise AssertionError("tp (a) bf16: the two model ranks hold the same shard")
+    for r in (r0, r1):
+        if r["launches"] != 2 * TP_STEPS:
+            raise AssertionError(f"tp (a) bf16: {r['launches']} photometric launches for "
+                                 f"{TP_STEPS} steps, expected {2 * TP_STEPS}")
+    print(f"[tp] (a) bf16, 2 ranks sharing the card at 1 x 2, batch {global_batch} on each: "
+          f"{TP_STEPS} "
+          f"steps, loss first {r0['losses'][0]:.4f} last {r0['losses'][-1]:.4f}, the tower "
+          f"and bank bit for bit the same on both ranks, {r0['launches']} launches a rank; "
+          f"{r0['step_ms']:.2f} ms a step, {r0['collectives_per_step']:.1f} collectives "
+          f"{r0['mb_per_step']:.3f} MB and {r0['collective_ms_per_step']:.2f} host ms a step "
+          f"on rank 0 (two ranks on one card: not a scaling figure) | {card}")
+    print(f"[tp] (b) the dry run's DPxTP phase at 4 ranks (2 x 2) on CUDA tensors over gloo "
+          f"passed in {seconds_b:.1f} s, {sum(d['launches'] for d in dry)} photometric "
+          f"launches")
+    out["a"] = {"table_err": table_err, "param_err": param_err, "stat_err": stat_err,
+                "loss_err": loss_err, "seconds": seconds_a,
+                "launches": r0["launches"] + r1["launches"],
+                **{k: r0[k] for k in ("step_ms", "collectives_per_step", "mb_per_step",
+                                      "collective_ms_per_step")}}
+    out["b"] = {"seconds": seconds_b, "launches": sum(d["launches"] for d in dry)}
+    if out["b"]["launches"] == 0:
+        raise AssertionError("tp (b): the dry run's phase launched no photometric kernel")
+    out["c"] = _phase_native_io(card)
+    return out
+
+
 def _check_device_repair() -> None:
     """The photometric wrapper launches on its tensors' device when another
     is current."""
@@ -1746,6 +2060,9 @@ def main() -> None:
     paths["ddp-torchrun"] = ddp["a"]["launches"]
     paths.update({f"ddp-gloo-{mode}": ddp["b"][mode]["launches"]
                   for mode in ("sync", "per_device_bn")})
+    tp = _timed("tp", phase_tp, card)
+    paths["tp-gloo"] = tp["a"]["launches"]
+    paths["tp-dryrun"] = tp["b"]["launches"]
     _held_before_run("the end")
     print(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s | {card}")
     kernels[0]["launches"] = sum(paths.values())

@@ -33,6 +33,11 @@ names:
 `f_proj`, `g_proj_head_initial`, `g_proj_head_final`; DeepCluster's
 `DCNet`: `clf_head`) -> `encoder.*` and `<name>.weight`/`.bias`.
 
+Under a model axis of M ranks (`parallel/mesh.py`), `prototype_shard`
+gives model rank m its rows of SwAV's `prototypes/table`, as the port's
+sharded `Prototypes` holds them, and `gather_prototypes` stacks the shards
+back into the one table.
+
 `extra_state_dicts` maps the rest of a JAX `TrainState.extra` to the
 port's `state.extra` modules: an EMA target (`target_params` /
 `target_batch_stats`) or MoCo's key tower (`key_params` / `key_batch_stats`)
@@ -217,6 +222,22 @@ def model_state_dict(params: dict, batch_stats: dict, stage_sizes: Sequence[int]
             _dense(out, name, params[name])
         return out
     return tower_state_dict(params, batch_stats, stage_sizes, bn_after)
+
+
+def prototype_shard(table, shard: int, shards: int) -> np.ndarray:
+    """Rows [m K / M, (m + 1) K / M) of a (K, d) prototype table (numpy),
+    model rank m's of M; M must divide K."""
+    table = np.asarray(table)
+    k = table.shape[0]
+    if k % shards:
+        raise ValueError(f"{k} prototypes do not split over {shards} model ranks")
+    rows = k // shards
+    return table[shard * rows:(shard + 1) * rows]
+
+
+def gather_prototypes(shards) -> np.ndarray:
+    """The (K, d) table from the model ranks' shards, in model-rank order."""
+    return np.concatenate([np.asarray(s) for s in shards])
 
 
 def extra_state_dicts(extra: dict, stage_sizes: Sequence[int],

@@ -1,10 +1,11 @@
 """Dataset loading: CIFAR-10/100 from disk, with synthetic fallbacks.
 
-The port's NumPy copy of ssv_tpu/data/datasets.py: the same readers of the
-published CIFAR pickle and binary layouts, and the same deterministic
-synthetic sets (`make_synthetic`, synth100, shapes100), bit for bit. It does
-not read or write the JAX package's native `.raw` cache, and reads the binary
-layout with NumPy in place of the native IO library.
+The port's copy of ssv_tpu/data/datasets.py: the same readers of the
+published CIFAR pickle and binary layouts, through the port's native IO
+library (`data/native_io.py`: the binary reader and the pickle layout's
+CHW -> HWC), the same `.raw` fast-start cache (read before any other
+loader, written after a real read), and the same deterministic synthetic
+sets (`make_synthetic`, synth100, shapes100), bit for bit.
 
 Datasets are host numpy uint8 NHWC arrays; `DataPipeline` puts them on the
 device once and assembles every batch there.
@@ -19,6 +20,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from . import native_io
 
 @dataclass
 class SplitArrays:
@@ -42,7 +44,7 @@ def _load_cifar_pickle_dir(d: str, coarse: bool = False):
         with open(fname, "rb") as f:
             entry = pickle.load(f, encoding="latin1")
         chw = entry["data"].reshape(-1, 3, 32, 32).astype(np.uint8)
-        data = np.ascontiguousarray(chw.transpose(0, 2, 3, 1))
+        data = native_io.chw_to_hwc(chw)
         labels = entry.get("labels", entry.get("fine_labels"))
         return data, np.asarray(labels, np.int32)
 
@@ -75,13 +77,7 @@ def _load_cifar_binary_dir(d: str, name: str):
 
 def _read_cifar_binary(path: str, label_bytes: int, max_n: int):
     """Rows of [label (1 or 2 bytes, fine label last)][3072 bytes CHW]."""
-    raw = np.fromfile(path, np.uint8)
-    row = label_bytes + 3072
-    n = min(len(raw) // row, max_n)
-    raw = raw[: n * row].reshape(n, row)
-    labels = raw[:, label_bytes - 1].astype(np.int32)
-    images = raw[:, label_bytes:].reshape(n, 3, 32, 32).transpose(0, 2, 3, 1)
-    return np.ascontiguousarray(images), labels
+    return native_io.read_cifar_binary(path, label_bytes, max_n)
 
 
 def _find_binary_dir(root: str, name: str):
@@ -371,6 +367,18 @@ def make_synthetic_shapes(name: str = "shapes100", num_classes: int = 100,
 DATASETS = ("cifar10", "cifar100", "synth100", "shapes100")
 
 
+def _write_cache(path: str, split: SplitArrays) -> None:
+    """Writes a `.raw` cache under a name of this process's and renames it
+    over `path`, so ranks loading at once never read one half written."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        if native_io.write_raw_cache(tmp, split.images, split.labels):
+            os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def load_dataset(dataset_name: str, root: str, allow_synthetic: bool = True,
                  synthetic_sizes: tuple[int, int] | None = None) -> Dataset:
     if dataset_name not in DATASETS:
@@ -385,6 +393,15 @@ def load_dataset(dataset_name: str, root: str, allow_synthetic: bool = True,
         return make_synthetic_shapes("shapes100", 100, n_train, n_test)
     num_classes = 10 if dataset_name == "cifar10" else 100
 
+    # fast-start flat cache (native writer; single sequential read)
+    cache = os.path.join(root or ".", f"{dataset_name}_train.raw")
+    cache_test = os.path.join(root or ".", f"{dataset_name}_test.raw")
+    cached_train = native_io.read_raw_cache(cache)
+    cached_test = native_io.read_raw_cache(cache_test)
+    if cached_train is not None and cached_test is not None:
+        return Dataset(dataset_name, SplitArrays(*cached_train),
+                       SplitArrays(*cached_test), num_classes)
+
     loaded = None
     d = _find_binary_dir(root or ".", dataset_name)
     if d is not None:
@@ -395,6 +412,12 @@ def load_dataset(dataset_name: str, root: str, allow_synthetic: bool = True,
             loaded = _load_cifar_pickle_dir(d)
     if loaded is not None:
         train, test, ncls = loaded
+        try:
+            os.makedirs(root or ".", exist_ok=True)
+            _write_cache(cache, train)
+            _write_cache(cache_test, test)
+        except OSError:
+            pass
         return Dataset(dataset_name, train, test, ncls)
 
     if not allow_synthetic:

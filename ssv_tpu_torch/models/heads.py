@@ -182,18 +182,31 @@ class DinoHead(nn.Module):
 
 class Prototypes(nn.Module):
     """A (count, dim) table drawn N(0, 1), its rows L2-normalized on read;
-    trained with the model."""
+    trained with the model.
 
-    def __init__(self, count: int, dim: int):
+    Sharded over `shards` model ranks (the JAX dry run's `P("model", None)`),
+    shard m holds rows [m count / shards, (m + 1) count / shards): it draws
+    the whole table from the generator, as one process does, and keeps its
+    rows, so the shards stacked are the one-process table bit for bit and
+    the generator's later draws are the same. The row normalisation is
+    local to a shard."""
+
+    def __init__(self, count: int, dim: int, shards: int = 1, shard: int = 0):
         super().__init__()
-        self.table = nn.Parameter(torch.empty(count, dim))
+        if count % shards:
+            raise ValueError(f"{count} prototypes do not split over {shards} model ranks")
+        rows = count // shards
+        self.count, self.rows = count, slice(shard * rows, (shard + 1) * rows)
+        self.table = nn.Parameter(torch.empty(rows, dim))
 
     def forward(self):
         return l2_normalize(self.table)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        nn.init.normal_(self.table, 0.0, 1.0, generator=generator)
+        table = torch.empty(self.count, self.table.shape[1])
+        nn.init.normal_(table, 0.0, 1.0, generator=generator)
+        self.table.copy_(table[self.rows])
 
 
 class ClusterHeads(nn.Module):

@@ -23,7 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..parallel.mesh import world_size
+from ..parallel.mesh import data_size
 from ..parallel.per_device import all_reduce_sum
 
 
@@ -32,9 +32,11 @@ class _FlaxRunningVar:
     as flax's does; torch's own tracks the unbiased one. Flax
     `momentum=0.9` is torch `momentum=0.1`.
 
-    With `sync` set (`parallel.sync_batchnorm`) and more than one rank, a
-    training forward takes its statistics over the global batch: each
-    channel's count, sum and sum of squares, all-reduced with gradients,
+    With `sync` set (`parallel.sync_batchnorm`) and more than one data rank,
+    a training forward takes its statistics over the global batch: each
+    channel's count, sum and sum of squares, all-reduced over the data group
+    with gradients (the model ranks of a row hold the same rows, so the
+    world would count them M times in the backward),
     give the mean and the biased variance as flax computes them (mean of
     x and of x^2, var = max(0, E[x^2] - mean^2)). Otherwise it is torch's
     BatchNorm with the running-variance correction below."""
@@ -44,7 +46,7 @@ class _FlaxRunningVar:
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        if self.sync and world_size() > 1:
+        if self.sync and data_size() > 1:
             return self._global_forward(x)
         n = x.numel() // x.shape[1]
         keep = 1.0 - self.momentum

@@ -4,6 +4,10 @@ swapped prediction, SeLA's self-labelling, DINO's centred cross-entropy and
 PIRL's two-term NCE).
 
 Losses take and compute in float32; call them outside any autocast region.
+
+SwAV's two functions also run column-parallel over a model group (`group`):
+each rank holds K/M prototypes' columns of the scores, and the reductions
+over K cross the group (`parallel/per_device.py`).
 """
 
 from __future__ import annotations
@@ -11,6 +15,9 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..parallel.mesh import group_size
+from ..parallel.per_device import copy_to_group, group_logsumexp, group_sum
 
 NEG_INF = -1e9
 
@@ -108,36 +115,61 @@ def relic_loss(zi, zj, z_orig, temperature: float = 1.0, alpha: float = 0.5,
 
 
 @torch.no_grad()
-def sinkhorn_codes(scores, eps: float = 0.05, n_iters: int = 3):
+def sinkhorn_codes(scores, eps: float = 0.05, n_iters: int = 3, group=None):
     """Sinkhorn-Knopp codes: exp(s / eps)^T scaled in turn to uniform row
     (over the K prototypes) and column (over the B samples) marginals,
     `n_iters` times, then column-normalized and transposed back to (B, K).
     Each step runs in the log domain (logsumexp), so s / eps > 88, where
-    exp overflows float32, stays finite. No gradient flows through."""
+    exp overflows float32, stays finite. No gradient flows through.
+
+    With a `group`, `scores` are this rank's (B, K/M) columns and so are the
+    codes: the row step (over samples) stays local, the column steps (over
+    prototypes) take a logsumexp across the group, and the row marginal is
+    the global K's."""
     lq = (scores / eps).T                       # (K, B) log kernel
     k, b = lq.shape
+    if group is None:
+        def over_k(x):
+            return torch.logsumexp(x, dim=0, keepdim=True)
+    else:
+        k *= group_size(group)
+
+        def over_k(x):
+            return group_logsumexp(x, 0, group, keepdim=True)
     lr, lc = -math.log(k), -math.log(b)         # log uniform marginals
     for _ in range(n_iters):
         lq = lq - torch.logsumexp(lq, dim=1, keepdim=True) + lr
-        lq = lq - torch.logsumexp(lq, dim=0, keepdim=True) + lc
-    return torch.exp(lq - torch.logsumexp(lq, dim=0, keepdim=True)).T
+        lq = lq - over_k(lq) + lc
+    return torch.exp(lq - over_k(lq)).T
 
 
 def swav_loss(z1, z2, prototypes, bank_features=None, temperature: float = 0.1,
-              sinkhorn_eps: float = 0.05, sinkhorn_iters: int = 3):
+              sinkhorn_eps: float = 0.05, sinkhorn_iters: int = 3, group=None):
     """Swapped prediction: the codes of view 1 supervise view 2 and the
     codes of view 2 view 1. The bank's rows, detached, are concatenated to
-    both views to fatten the assignment problem. Scores in float32."""
+    both views to fatten the assignment problem. Scores in float32.
+
+    With a `group`, `prototypes` are this rank's K/M rows of the table and z1,
+    z2 the same on every rank of the group: the scores are a local (B', K/M)
+    product, the log-softmax over K takes its logsumexp across the group,
+    and each sample's sum over K is a per-shard partial summed across it."""
+    if group is not None:
+        z1, z2 = copy_to_group(z1, group), copy_to_group(z2, group)
     if bank_features is not None:
         bank_features = bank_features.detach()
         z1 = torch.cat([z1, bank_features])
         z2 = torch.cat([z2, bank_features])
     s1, s2 = z1 @ prototypes.T, z2 @ prototypes.T
-    q1 = sinkhorn_codes(s1, sinkhorn_eps, sinkhorn_iters)
-    q2 = sinkhorn_codes(s2, sinkhorn_eps, sinkhorn_iters)
-    p1 = torch.log_softmax(s1 / temperature, dim=-1)
-    p2 = torch.log_softmax(s2 / temperature, dim=-1)
-    return -0.5 * ((q1 * p2).sum(dim=1) + (q2 * p1).sum(dim=1)).mean()
+    q1 = sinkhorn_codes(s1, sinkhorn_eps, sinkhorn_iters, group)
+    q2 = sinkhorn_codes(s2, sinkhorn_eps, sinkhorn_iters, group)
+    if group is None:
+        p1 = torch.log_softmax(s1 / temperature, dim=-1)
+        p2 = torch.log_softmax(s2 / temperature, dim=-1)
+        return -0.5 * ((q1 * p2).sum(dim=1) + (q2 * p1).sum(dim=1)).mean()
+    s1, s2 = s1 / temperature, s2 / temperature
+    p1 = s1 - group_logsumexp(s1, -1, group, keepdim=True)
+    p2 = s2 - group_logsumexp(s2, -1, group, keepdim=True)
+    return -0.5 * group_sum((q1 * p2).sum(dim=1) + (q2 * p1).sum(dim=1), group).mean()
 
 
 @torch.no_grad()

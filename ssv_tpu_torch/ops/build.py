@@ -1,10 +1,12 @@
-"""Build the package's CUDA sources into shared libraries and load them.
+"""Build the package's native sources into shared libraries and load them.
 
-Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into a
-library with a plain C interface, loaded with `ctypes`. The build happens on
-first use, into `build/ssv_tpu_torch/` at the root of the checkout, under a
-file name keyed by a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is.
+Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`), and each
+`csrc/<name>.cc` (host code: the CIFAR reader and `.raw` cache) by `g++`,
+into a library with a plain C interface, loaded with `ctypes`. The build
+happens on first use, into `build/ssv_tpu_torch/` at the root of the
+checkout, under a file name keyed by a hash of the source and the flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is. A
+failed build raises with the compiler's message: nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ BUILD_DIR = _PKG.parent / "build" / "ssv_tpu_torch"
 # PyTorch versions round them; no fast-math, so division stays IEEE.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+# the host library's flags (the JAX package builds native/ssv_io.cc so)
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 
 def find_nvcc() -> str:
@@ -40,27 +44,50 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
+def find_gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found on PATH; the native IO library cannot be built")
+
+
+def source(name: str) -> Path:
+    """csrc/<name>.cu or csrc/<name>.cc."""
+    for suffix in (".cu", ".cc"):
+        path = CSRC / f"{name}{suffix}"
+        if path.is_file():
+            return path
+    raise FileNotFoundError(f"no {name}.cu or {name}.cc under {CSRC}")
+
+
+def _flags(src: Path) -> tuple[str, ...]:
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    src = source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(src)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library of the same hash exists.
-    Raises RuntimeError with nvcc's stderr when the compile fails."""
+    """Compile csrc/<name>.cu (nvcc) or csrc/<name>.cc (g++) unless a
+    library of the same hash exists. Raises RuntimeError with the
+    compiler's stderr when the compile fails."""
     out = library_path(name)
     if out.is_file():
         return out
+    src = source(name)
+    compiler = find_nvcc() if src.suffix == ".cu" else find_gxx()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [compiler, *_flags(src), "-o", tmp, str(src)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
-                               f"{name}.cu:\n{proc.stderr}")
+            raise RuntimeError(f"{os.path.basename(compiler)} failed ({proc.returncode}) "
+                               f"building {src.name}:\n{proc.stderr}")
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     finally:
         if os.path.exists(tmp):
@@ -70,5 +97,6 @@ def build(name: str) -> Path:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu; one handle per process."""
+    """Build (if needed) and load csrc/<name>.cu or .cc; one handle per
+    process."""
     return ctypes.CDLL(str(build(name)))

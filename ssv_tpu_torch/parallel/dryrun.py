@@ -1,5 +1,5 @@
-"""A dry run of data-parallel training at a tiny size (counterpart of
-`__graft_entry__.dryrun_multichip`'s phases 1, 3 and 4):
+"""A dry run of data-parallel and data x model-parallel training at a tiny
+size (counterpart of `__graft_entry__.dryrun_multichip`'s four phases):
 
     torchrun --nproc_per_node N -m ssv_tpu_torch.parallel.dryrun [--device cpu]
 
@@ -8,18 +8,23 @@ phase checks that the state is the same, bit for bit, on every rank.
 
 1. sync SimCLR: one step of the `tiny` encoder on a global batch of 4N,
    every BatchNorm taking global statistics;
-2. MoCo: an 8-step epoch (the queue pointer at 8 global batches), a
+2. DPxTP SwAV, at an even world: the ranks laid out as (N / 2, 2) over
+   (data, model), SwAV's 128-row prototype table sharded by rows over the
+   model group, the scores column-parallel and Sinkhorn's reductions
+   across the model group: a float32 step on given views, held against a
+   one-process step of the same state on the same global batch (the
+   gathered table, the tower, the loss), then a step on each data rank's
+   own draws; the tower the same on every rank, each shard the same across
+   its data group, the bank the same everywhere;
+3. MoCo: an 8-step epoch (the queue pointer at 8 global batches), a
    checkpoint saved and restored by every rank (step, pointer and queue
    checked), one more step on the restored state, then one
    `per_device_bn` step of a MoCo loaded from it (the queue advanced by
    the global batch);
-3. DINO: a multi-crop epoch through the `Trainer` (a synthetic dataset, the
+4. DINO: a multi-crop epoch through the `Trainer` (a synthetic dataset, the
    per-step teacher EMA), KNN and the linear probe through its gathered
    `features_for` (the same accuracy on every rank), and one
    `per_device_bn` PIRL step whose bank update covers the global batch.
-
-The JAX dry run's DP x TP SwAV phase (prototypes sharded over a `model`
-axis) has no counterpart: the port's ranks are data-parallel only.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import yaml
 
 from . import mesh
 from .mesh import batch_slice, gather_objects, rank, world_size
+
+TP_TOL = 1e-5   # the DPxTP step against one process's: params, abs (float32)
 
 NORM = {"mean": [0.4914, 0.4822, 0.4465], "std": [0.2470, 0.2435, 0.2616]}
 TRANSFORMS = {
@@ -115,6 +122,92 @@ def phase_sync_simclr(device, generator) -> None:
     _check_replicated("sync SimCLR", state.model)
     _say(f"[dryrun] sync SimCLR: {world_size()} ranks, global batch {batch}, "
           f"{len(bns)} BatchNorms over the global batch, loss {loss:.4f}")
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max((a[k].float() - b[k].float()).abs().max().item() for k in b
+               if b[k].is_floating_point())
+
+
+def phase_dp_tp_swav(device) -> None:
+    """The JAX dry run's phase 2 (`__graft_entry__.py:172-219`) at its
+    shapes: `tiny` (features 32), hidden 32, proj 16, 128 prototypes, a bank
+    of 32, 3 Sinkhorn iterations, SGD at 0.1, a global batch of 4N, on an
+    (N / 2, 2) layout; float32."""
+    from ..data.pipeline import DataPipeline
+    from ..objectives.losses import l2_normalize
+    from ..state.banks import ring_push
+    from ..train.base import DataInfo
+    from ..train.registry import build_algorithm
+
+    w = world_size()
+    if w % 2:
+        _say(f"[dryrun] DPxTP SwAV: skipped, a model axis of 2 needs an even world, not {w}")
+        return
+    batch = 4 * w
+    cfg = _config(batch, hidden_dim=32, proj_dim=16, prototype_size=128,
+                  feature_bank_size=32, compute_dtype="float32",
+                  optimizer={"name": "sgd", "lr": 0.1, "weight_decay": 1e-6},
+                  loss_fn={"temperature": 0.1, "sinkhorn_eps": 0.05, "sinkhorn_iters": 3})
+    pipeline = DataPipeline(cfg["data"], device, synthetic_sizes=(2 * batch, batch))
+    info = DataInfo(10, pipeline.n_train, batch, 2)
+    images, labels = pipeline.arrays("train")
+    batch_fn = pipeline.make_batch_fn("double")
+    idx = torch.arange(batch, device=device)
+    # the global batch's views, the same on every rank; the bank's rows
+    views = batch_fn(images, labels, idx, torch.Generator(device=device).manual_seed(0))
+    rows = l2_normalize(torch.randn(32, 16, generator=torch.Generator().manual_seed(1)))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+
+    def start():
+        algo = build_algorithm("swav", cfg, "tiny", info, device)
+        state = algo.init_state(torch.Generator().manual_seed(0))
+        ring_push(state.extra["bank"], rows.to(device))
+        return algo, state
+
+    try:
+        with mesh.local():
+            algo, state = start()
+            state, metrics = algo.train_step(state, views)
+            ref_loss = float(metrics["loss"])
+            ref = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        mesh.set_model_parallel(2)
+        algo, state = start()
+        state, metrics = algo.train_step(
+            state, {k: batch_slice(v) for k, v in views.items()})
+        loss = _check_finite("DPxTP SwAV", metrics["loss"])
+        got = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        shards = gather_objects((mesh.model_rank(), got.pop("prototypes.table")))
+        got["prototypes.table"] = torch.cat([t for _, t in shards[:2]])
+        table_err = _max_diff(got, {"prototypes.table": ref["prototypes.table"]})
+        tower_err = _max_diff(got, {k: v for k, v in ref.items() if k.startswith("tower.")})
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        if table_err > TP_TOL or tower_err > TP_TOL or loss_err > TP_TOL:
+            raise AssertionError(f"DPxTP SwAV: the step differs from one process's: table "
+                                 f"{table_err:.3e}, tower {tower_err:.3e}, loss {loss_err:.3e}")
+
+        # a step on each data rank's own draws: the model ranks of a row
+        # draw the same rows
+        generator = torch.Generator(device=device).manual_seed(mesh.data_rank())
+        state, metrics = algo.train_step(
+            state, batch_fn(images, labels, batch_slice(idx + batch), generator))
+        _check_finite("DPxTP SwAV", metrics["loss"])
+        _check_replicated("DPxTP SwAV", state.model.tower, state.extra["bank"])
+        by_shard: dict[int, set] = {}
+        for m, d in gather_objects((mesh.model_rank(), digest(state.model.prototypes))):
+            by_shard.setdefault(m, set()).add(d)
+        if sorted(by_shard) != [0, 1] or any(len(d) != 1 for d in by_shard.values()):
+            raise AssertionError(f"DPxTP SwAV: a shard differs across its data group: "
+                                 f"{by_shard}")
+    finally:
+        mesh.set_model_parallel(1)
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    _say(f"[dryrun] DPxTP SwAV: {w // 2} x 2 ranks (data x model), 128 prototypes, 64 a "
+         f"rank, global batch {batch}, loss {loss:.4f}; against one process's float32 "
+         f"step: the gathered table within {table_err:.3e}, the tower {tower_err:.3e}, the "
+         f"loss {loss_err:.3e} relative; a second step on each data rank's draws: the tower "
+         f"the same on every rank, each shard across its data group")
 
 
 def phase_moco(device, generator, tmp: str) -> None:
@@ -237,6 +330,7 @@ def main(argv=None) -> None:
     try:
         generator = torch.Generator(device=device).manual_seed(me)
         phase_sync_simclr(device, generator)
+        phase_dp_tp_swav(device)
         phase_moco(device, generator, tmp)
         phase_dino_pirl(device, generator, tmp)
         mesh.barrier()

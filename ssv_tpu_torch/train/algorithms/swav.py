@@ -9,17 +9,30 @@ fatten the assignment problem.
   * `pre_train` fills the bank with the last `feature_bank_size` rows of
     the train split's features, in order;
   * each step pushes both views' embeddings, detached, after the update.
+
+Under a model axis (`parallel/mesh.py`, M > 1: the dry run, not the CLI)
+each rank holds its model rank's K/M rows of the table (`Prototypes`), the
+views' embeddings are gathered over the data group, and the loss is
+column-parallel across the model group (`objectives/losses.py`). Each
+gradient is then meaned over the ranks that hold its parameter: the
+shard's over its data group, the tower's over the world. The model ranks
+of a row compute the same tower gradient, so the world's mean is the data
+group's, but only a collective makes their copies equal bit for bit where
+the card's kernels (cuDNN's weight gradients) do not sum in a fixed order.
+The bank, pushed from the gathered rows, is the same on every rank. At
+M = 1 the step is the data-parallel one.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ...models.heads import Prototypes, swav_projection
 from ...models.registry import build_encoder
 from ...objectives.losses import swav_loss
-from ...parallel import pgather
+from ...parallel import mesh, pgather, reduce_grads
 from ...state.banks import RingBuffer, ring_push
 from ..base import Algorithm, DataInfo, TrainState
 from .common import Tower, forward_views
@@ -50,7 +63,8 @@ class SwAV(Algorithm):
         self.proj_dim = int(config["proj_dim"])
         encoder, dim = build_encoder(arch, self.encoder_cfg())
         tower = Tower(encoder, swav_projection(dim, int(config["hidden_dim"]), self.proj_dim))
-        self.model = SwAVModel(tower, Prototypes(int(config["prototype_size"]), self.proj_dim))
+        self.model = SwAVModel(tower, Prototypes(int(config["prototype_size"]), self.proj_dim,
+                                                 mesh.model_size(), mesh.model_rank()))
         self.bank_size = int(config["feature_bank_size"])
         self.loss_cfg = dict(config.get("loss_fn", {}) or {})
         self.fuse = bool(config.get("fuse_views", False))
@@ -75,10 +89,16 @@ class SwAV(Algorithm):
         # Sinkhorn's marginals and the bank push span the global batch
         z1, z2 = pgather(z1.float()), pgather(z2.float())
         loss = swav_loss(z1, z2, state.model.prototypes(), bank_features=bank.data,
-                         **self.loss_cfg)
+                         group=mesh.model_group(), **self.loss_cfg)
         state, loss = self.grad_step(state, loss, loss_scope="global")
         ring_push(bank, torch.cat([z1, z2]).detach())
         return state, {"loss": loss}
+
+    def reduce_gradients(self, state: TrainState, loss_scope: str) -> None:
+        if mesh.model_size() == 1:
+            return super().reduce_gradients(state, loss_scope)
+        reduce_grads(state.model.tower.parameters(), loss_scope, group=dist.group.WORLD)
+        reduce_grads(state.model.prototypes.parameters(), loss_scope)
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

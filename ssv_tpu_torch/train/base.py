@@ -28,7 +28,8 @@ from typing import Callable
 
 import torch
 
-from ..parallel import pmean, pmean_bn_, reduce_grads, sync_batchnorm, world_size
+from ..parallel import pmean, pmean_bn_, reduce_grads, sync_batchnorm
+from ..parallel.mesh import data_size
 
 
 @dataclass
@@ -119,9 +120,10 @@ class Algorithm:
         """Draws `module`'s weights from the host `generator`, so a run
         starts from the same weights on any device (and on every rank), and
         moves it to the device (channels-last for cuDNN on CUDA). Across
-        ranks its BatchNorms take global statistics unless `per_device_bn`."""
+        data ranks its BatchNorms take global statistics unless
+        `per_device_bn`."""
         module.init_weights(generator)
-        if world_size() > 1 and not self.per_device_bn:
+        if data_size() > 1 and not self.per_device_bn:
             sync_batchnorm(module)
         module = module.to(self.device)
         if self.device.type == "cuda":
@@ -141,6 +143,11 @@ class Algorithm:
                              self.lr_fn(), weight_decay_fn=weight_decay_fn,
                              grad_clip=grad_clip)
 
+    def reduce_gradients(self, state: TrainState, loss_scope: str) -> None:
+        """Means each gradient over the ranks that hold its parameter: the
+        data group, for a model replicated on every rank of it."""
+        reduce_grads(state.model.parameters(), loss_scope)
+
     def grad_step(self, state: TrainState, loss: torch.Tensor, update_mask=None,
                   loss_scope: str = "local") -> tuple[TrainState, torch.Tensor]:
         """Backward of `loss`, the gradients averaged over the ranks, one
@@ -157,7 +164,7 @@ class Algorithm:
         are replica-meaned after the step."""
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        reduce_grads(state.model.parameters(), loss_scope)
+        self.reduce_gradients(state, loss_scope)
         frozen = [p.detach().clone() for p in update_mask or ()]
         state.optimizer.step()
         if frozen:

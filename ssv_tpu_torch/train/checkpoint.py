@@ -19,14 +19,24 @@ import os
 import torch
 
 from ..parallel import rank, world_size
-from ..parallel.mesh import gather_objects
+from ..parallel.mesh import gather_objects, model_size
 from .base import TrainState
+
+
+def _no_model_axis() -> None:
+    """A state sharded over a model axis is not one state rank 0 could
+    write (its shard is not the table): the model axis does not
+    checkpoint, as the JAX dry run's DPxTP phase does not."""
+    if model_size() > 1:
+        raise RuntimeError(f"no checkpoint under a model axis of {model_size()}: rank 0 "
+                           f"holds one shard of the prototype table, not the table")
 
 
 def save_state(path: str, state: TrainState, generator: torch.Generator) -> None:
     """Writes the checkpoint to a temporary file and renames it over `path`,
     so an interrupted save leaves the previous checkpoint whole. Every rank
-    calls it; rank 0 writes."""
+    calls it; rank 0 writes. Raises under a model axis."""
+    _no_model_axis()
     generators = gather_objects(generator.get_state())
     if rank() != 0:
         return
@@ -48,7 +58,8 @@ def restore_state(path: str, state: TrainState,
     """Loads a checkpoint into `state` and, unless None, `generator` (this
     rank's), in place, its tensors mapped to the device the model lives on.
     Restoring a generator at another world size than the saving run's
-    raises."""
+    raises, and so does any restore under a model axis."""
+    _no_model_axis()
     device = next(state.model.parameters()).device
     blob = torch.load(path, map_location=device, weights_only=True)
     saved = len(blob["generators"])

@@ -36,7 +36,7 @@ from ..evals.knn import compute_neighbor_accuracy
 from ..evals.linear import linear_evaluation
 from ..ops.photometric import fused_photometric
 from ..parallel import batch_slice, pgather, rank, replicate
-from ..parallel.mesh import barrier, broadcast_
+from ..parallel.mesh import barrier, broadcast_, data_rank
 from ..utils.logging import get_wandb, progress_bar
 from .base import DataInfo, TrainState
 from .checkpoint import restore_state, save_state
@@ -106,10 +106,11 @@ class Trainer:
         self.eval_every = int(cfg.get("eval_every", 10))
 
         # every random draw of the run comes from this device generator (one
-        # a rank, rank 0's of the run's seed); the weights from a host
+        # a data rank, data rank 0's of the run's seed: the model ranks of a
+        # row draw the same augmentations); the weights from a host
         # generator of the seed, the same on every rank, and rank 0's copy
         # is put on every rank
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + rank())
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + data_rank())
         self.state: TrainState = self.algorithm.init_state(
             torch.Generator().manual_seed(seed))
         for module in (self.state.model, *self.state.extra.values()):

@@ -3,7 +3,7 @@
 on the staged fake CIFAR (16x16 train views), float32, 2 epochs; the same
 run stopped at epoch 2's start and resumed with `-l`, each rank recording
 what it saw (`torch_helpers.cli_rank`); a resume at 1 rank; and the dry run
-of ssv_tpu_torch/parallel/dryrun.py at 2 ranks. Each launch is given
+of ssv_tpu_torch/parallel/dryrun.py at 2 and 4 ranks. Each launch is given
 `LAUNCH_TIMEOUT_S`."""
 
 import glob
@@ -121,8 +121,21 @@ def test_resume_at_another_world_size_raises(runs):
 
 
 def test_dryrun_at_two_ranks(tmp_path):
-    """ssv_tpu_torch/parallel/dryrun.py's phases at 2 ranks on gloo."""
+    """ssv_tpu_torch/parallel/dryrun.py's phases at 2 ranks on gloo (the
+    DPxTP phase at 1 x 2)."""
     proc = _launch(tmp_path, ["-m", "ssv_tpu_torch.parallel.dryrun", "--device", "cpu"])
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    for phase in ("sync SimCLR", "MoCo", "DINO"):
+    for phase in ("sync SimCLR", "DPxTP SwAV: 1 x 2 ranks", "MoCo", "DINO"):
         assert f"[dryrun] {phase}" in proc.stdout, proc.stdout
+
+
+def test_dryrun_at_four_ranks(tmp_path):
+    """The dry run's phases at 4 ranks on gloo, the DPxTP phase at 2 x 2:
+    its step held against one process's, the tower the same on every rank
+    and each shard across its data group."""
+    proc = _launch(tmp_path, ["-m", "ssv_tpu_torch.parallel.dryrun", "--device", "cpu"],
+                   nproc=4)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    for phase in ("sync SimCLR", "DPxTP SwAV: 2 x 2 ranks", "MoCo", "DINO"):
+        assert f"[dryrun] {phase}" in proc.stdout, proc.stdout
+    assert "[dryrun] every phase passed at 4 ranks" in proc.stdout

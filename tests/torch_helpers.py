@@ -148,12 +148,14 @@ def assert_state_matches(tstate, jstate, algo, param_tol=1e-4, stat_tol=1e-5):
 RANK_TIMEOUT_S = 120   # a spawn's join, and each collective's wait
 
 
-def start_group(rank, world, tmp, name="group"):
-    """Starts a gloo group of `world` ranks through a file under `tmp`."""
+def start_group(rank, world, tmp, name="group", model_parallel=1):
+    """Starts a gloo group of `world` ranks through a file under `tmp`,
+    laid out as (world / model_parallel, model_parallel)."""
     from ssv_tpu_torch.parallel import mesh
 
     mesh.init("cpu", backend="gloo", init_method=f"file://{os.path.join(tmp, name)}",
-              rank=rank, world_size=world, timeout_s=RANK_TIMEOUT_S)
+              rank=rank, world_size=world, timeout_s=RANK_TIMEOUT_S,
+              model_parallel=model_parallel)
 
 
 def _rank_main(rank, fn, world, tmp, args):
@@ -359,6 +361,112 @@ def rank_one_vs_no_group(rank, world, tmp):
     start_group(rank, world, tmp)
     out["group"] = algorithm_steps(case)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the model axis (tests/test_torch_parallel_tp.py): ranks laid out as
+# (data, model), SwAV's prototype table sharded over the model group
+# ---------------------------------------------------------------------------
+def tp_layout():
+    """This rank's place in the grid, its groups' ranks, and a sum of the
+    world ranks over each group (the groups carry collectives)."""
+    import torch.distributed as dist
+
+    from ssv_tpu_torch.parallel import mesh, per_device
+
+    r = mesh.rank()
+    data, model = mesh.data_group(), mesh.model_group()
+    one = torch.tensor([float(r)])
+    return {"rank": r, "data": (mesh.data_rank(), mesh.data_size()),
+            "model": (mesh.model_rank(), mesh.model_size()),
+            "data_group": dist.get_process_group_ranks(data or dist.group.WORLD),
+            "model_group": dist.get_process_group_ranks(model) if model else [r],
+            "data_sum": per_device.all_reduce_sum(one).item(),
+            "model_sum": per_device.group_sum(one, model).item() if model else float(r)}
+
+
+def tp_loss(case):
+    """SwAV's loss and Sinkhorn codes on this rank's shard of the
+    (normalized) prototypes across the model group: the loss, the codes of
+    view 1's scores (this rank's columns), and the gradients of z1, z2 and
+    the shard."""
+    from ssv_tpu_torch.convert import prototype_shard
+    from ssv_tpu_torch.objectives.losses import sinkhorn_codes, swav_loss
+    from ssv_tpu_torch.parallel import mesh
+
+    group, cfg = mesh.model_group(), case["cfg"]
+    z1, z2 = (torch.from_numpy(case[k]).requires_grad_(True) for k in ("z1", "z2"))
+    protos = torch.from_numpy(prototype_shard(case["protos"], mesh.model_rank(),
+                                              mesh.model_size())).requires_grad_(True)
+    bank = torch.from_numpy(case["bank"])
+    loss = swav_loss(z1, z2, protos, bank_features=bank, group=group, **cfg)
+    loss.backward()
+    scores = torch.cat([z1, bank]).detach() @ protos.detach().T
+    codes = sinkhorn_codes(scores, cfg["sinkhorn_eps"], cfg["sinkhorn_iters"], group)
+    return {"loss": loss.item(), "codes": codes, "dz1": z1.grad, "dz2": z2.grad,
+            "dprotos": protos.grad}
+
+
+def tp_swav_steps(case):
+    """The port's SwAV steps on `tiny` from `case["init"]` ({"model", "bank"}
+    state dicts, the whole table), each rank's model rank's rows of the
+    table, each global batch of `case["batches"]` sliced by data rank.
+    Returns, after each step, the loss metric, the model's state dict (the
+    rank's shard) and the bank's. With `case["jitter"]`, model rank 1's
+    tower gradients are scaled by 1 + 2^-20 before the reduction."""
+    from ssv_tpu_torch.convert import prototype_shard
+    from ssv_tpu_torch.parallel import batch_slice, mesh
+    from ssv_tpu_torch.train.base import DataInfo
+    from ssv_tpu_torch.train.registry import build_algorithm
+
+    algo = build_algorithm("swav", case["cfg"], "tiny", DataInfo(*case["info"]), "cpu")
+    state = algo.init_state(torch.Generator().manual_seed(0))
+    if case.get("jitter") and mesh.model_rank() == 1:
+        # a kernel that sums in another order on this rank: its tower
+        # gradients differ from its row's in the last bits
+        for p in state.model.tower.parameters():
+            p.register_hook(lambda g: g * (1 + 2 ** -20))
+    model = dict(case["init"]["model"])
+    model["prototypes.table"] = torch.from_numpy(prototype_shard(
+        model["prototypes.table"].numpy(), mesh.model_rank(), mesh.model_size()))
+    state.model.load_state_dict(model)
+    state.extra["bank"].load_state_dict(case["init"]["bank"])
+    out = []
+    for batch in case["batches"]:
+        state, metrics = algo.train_step(
+            state, {k: batch_slice(torch.from_numpy(v)) for k, v in batch.items()})
+        out.append({"loss": metrics["loss"].item(),
+                    "model": {k: v.clone() for k, v in state.model.state_dict().items()},
+                    "bank": {k: v.clone() for k, v in state.extra["bank"].state_dict().items()}})
+    return out
+
+
+def tp_checkpoint_refusals():
+    """The messages `save_state` and `restore_state` raise with."""
+    from ssv_tpu_torch.train.checkpoint import restore_state, save_state
+
+    out = []
+    for call in (lambda: save_state("unused", None, None),
+                 lambda: restore_state("unused", None, None)):
+        try:
+            call()
+            out.append(None)
+        except RuntimeError as err:
+            out.append(str(err))
+    return out
+
+
+def rank_tp(rank, world, tmp, model_parallel, cases):
+    """Each of `cases` ({"layout": None, "loss": case, "steps": case,
+    "jittered": case, "bn": cases, "checkpoint": None}, any subset) on a
+    (world / model_parallel, model_parallel) layout."""
+    start_group(rank, world, tmp, model_parallel=model_parallel)
+    run = {"layout": lambda _: tp_layout(), "loss": tp_loss, "steps": tp_swav_steps,
+           "jittered": tp_swav_steps,
+           "checkpoint": lambda _: tp_checkpoint_refusals(),
+           "bn": lambda cs: [batchnorm_case(*(torch.from_numpy(a) for a in arrays), sync=True)
+                             for arrays in cs]}
+    return {name: run[name](case) for name, case in cases.items()}
 
 
 class StopAtEpoch(Exception):
