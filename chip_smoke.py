@@ -16,6 +16,19 @@ Phase 3 trains SimCLR ResNet-18 for one epoch at batch 512 on the full-size
 synthetic CIFAR-10 through `python -m ssv_tpu_torch.main`'s entry point,
 with KNN validation and the final linear probe, and checks that every train
 step went through the kernels.
+Phase `graph` (after phase 3) holds the epoch as one device program, the
+JAX package's default `jit_epoch`: for SimCLR ResNet-18 and BYOL ResNet-18
+at batch 512, DINO's ViT at 64, and each other algorithm at 128, 3 eager
+warm-up steps and 10 CUDA-graph replays in float32 against 13 eager steps
+from the same state and generator state, bit for bit (losses, state, the
+generator after; cuDNN's deterministic algorithms), with the photometric
+launches, replays counted; the first replayed step's views against the
+eager step's (SimCLR, DINO) and the kernel replayed from a graph against
+its plain version; then SimCLR ResNet-18 at bench.py's shape (B = 512 over
+8,192 images) in step and graph mode in turns (step, graph, graph, step,
+`tools/step_profile.py --turns`): img/s, host ms a step, device ops a step,
+the busy share, the capture's seconds and the graph's pool. Every training
+phase in one process runs in graph mode and prints it (`[mode]`).
 Phase 3b trains SimCLR ResNet-50 (`-m resnet50`) the same way, profiles 45
 more steps of the trained run (device ops a step, busy share), counts the
 model's FLOPs for the MFU, and runs `-t linear_eval -l` on its checkpoint.
@@ -111,6 +124,7 @@ its CIFAR binary reader against its NumPy version bit for bit on a
 `load_dataset` calls, the first writing the `.raw` cache and the second
 reading it, both timed.
 Every training phase checks the photometric launches per train step (two,
+a graph replay counted as the launches its capture recorded;
 one for SeLA's single augmented view; DeepCluster builds and pays for the
 `aug_2` it never reads), prints its steady img/s and its peak
 memory above what it inherited, and checks that what each run inherits stays
@@ -408,8 +422,12 @@ def _held_before_run(name: str) -> int:
     """Frees what earlier runs left, restarts the peak count, and returns the
     bytes still allocated, which the run's own peak is read above. Fails if
     they exceed what the first run inherited by more than HELD_SLACK: a run
-    that leaves its trainer's tensors on the card."""
+    that leaves its trainer's tensors on the card, or makes streams of its
+    own (cuBLAS keeps a workspace, 64 MiB on the H100, for every stream it
+    ran on until the process ends)."""
     gc.collect()
+    if not _HELD:
+        _warm_workspaces()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -422,8 +440,50 @@ def _held_before_run(name: str) -> int:
     return held
 
 
+def _warm_workspaces() -> None:
+    """A float32 and a bf16 Linear forward and backward on the default
+    stream and on the one stream every trainer's graph warms up and is
+    captured on (`train/graph.py`): cuBLAS's workspaces for each pair of
+    thread (this one, autograd's) and stream a trainer uses, made before
+    the first held-memory reading, so the baseline holds them and a run
+    that makes a stream of its own shows."""
+    from ssv_tpu_torch.train.graph import side_stream
+
+    lin = torch.nn.Linear(64, 64, device="cuda")
+    x = torch.ones(8, 64, device="cuda")
+    side = side_stream(torch.device("cuda"))
+    side.wait_stream(torch.cuda.current_stream())
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            for bf16 in (False, True):
+                with torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16):
+                    y = lin(x)
+                y.float().sum().backward()
+    torch.cuda.synchronize()
+
+
 def _gib(nbytes: int) -> str:
     return f"{nbytes / 2**30:.3f} GiB"
+
+
+def _reset_launches() -> None:
+    """Every count of photometric launches to 0: the wrapper's, and the
+    graph replays' (`train/graph.py`)."""
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.train.graph import StepGraph
+
+    fused_photometric.launches = 0
+    StepGraph.replayed_launches = 0
+
+
+def _launches() -> int:
+    """The photometric kernel's launches since `_reset_launches`: the
+    wrapper's count (a captured step's launches count once, as its graph's
+    first replay) and the launches of every later replay of a graph."""
+    from ssv_tpu_torch.ops.photometric import fused_photometric
+    from ssv_tpu_torch.train.graph import StepGraph
+
+    return fused_photometric.launches + StepGraph.replayed_launches
 
 
 def _check_launches(name: str, launches: int, steps: int) -> None:
@@ -443,7 +503,17 @@ def _check_probe(name: str, trainer, card: str) -> dict:
     return dict(probe)
 
 
+def _check_mode(name: str, mode: str) -> None:
+    """A run in one process on the card trains in graph mode, the JAX
+    package's default (`jit_epoch`): its step captured once and replayed."""
+    print(f"[mode] {name}: {mode}")
+    if mode != "graph":
+        raise AssertionError(f"{name}: trained in {mode} mode, expected graph")
+
+
 def _check_losses(name: str, stats: list[dict]) -> list[float]:
+    for mode in sorted({e["mode"] for e in stats}):
+        _check_mode(name, mode)
     losses = [x for e in stats for x in e["losses"]]
     if len(losses) != sum(e["steps"] for e in stats) or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{name}: non-finite or missing train losses: {losses}")
@@ -495,16 +565,15 @@ class _Hooks:
 def phase_slice(card: str) -> dict:
     """One epoch of SimCLR ResNet-18 through the port's CLI entry point."""
     from ssv_tpu_torch import main as cli
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.train.trainer import STEADY_AFTER
 
     with tempfile.TemporaryDirectory() as tmp:
         cfg_path = _config(tmp, "simclr", epochs=1, eval_every=1)
         held = _held_before_run("simclr")
-        fused_photometric.launches = 0
+        _reset_launches()
         trainer = cli.main(["-c", cfg_path, "-m", "resnet18", "-a", "simclr",
                             "-t", "train", "-o", os.path.join(tmp, "run")])
-        launches = fused_photometric.launches
+        launches = _launches()
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - held
 
@@ -545,6 +614,209 @@ def _train_gflop_per_view(model, algorithm, batch: int = 8) -> tuple[float, floa
     return fwd.get_total_flops() / batch / 1e9, both.get_total_flops() / batch / 1e9
 
 
+# the graph phase: graph replays against eager steps, the captured views
+# and kernel, and the two modes' speed in turns
+GRAPH_REPLAYS = 10     # replayed steps held against as many eager ones
+# (name, arch, batch, config overrides): the three paths of the first
+# benchmark at their configs' batches, then a short row for each other
+# algorithm at batch 128
+GRAPH_ROWS = (("simclr", "resnet18", 512, {}), ("byol", "resnet18", 512, {}),
+              ("dino", "vit", 64, {"encoder": "layers"}),
+              ("moco", "resnet18", 128, {}), ("swav", "resnet18", 128, {}),
+              ("simsiam", "resnet18", 128, {}), ("relic", "resnet18", 128, {}),
+              ("barlow", "resnet18", 128, {}), ("sela", "resnet18", 128, {}),
+              ("deep_cluster", "resnet18", 128, {}), ("pirl", "resnet18", 128, {}))
+
+
+def _graph_trainer(name: str, arch: str, batch: int, n_train: int, jit_epoch: bool,
+                   float32: bool, encoder: str | None = None):
+    """A Trainer of configs/<name>.yaml at `batch` on `n_train` synthetic
+    images, in the mode `jit_epoch` gives, writing nothing."""
+    import yaml
+
+    from ssv_tpu_torch.train.trainer import Trainer
+
+    overrides = {"jit_epoch": jit_epoch, "data": {"batch_size": batch}}
+    if float32:
+        overrides["compute_dtype"] = "float32"
+    if encoder == "layers":
+        with open(os.path.join(HERE, "configs", "dino.yaml")) as f:
+            overrides["encoder"] = {**yaml.safe_load(f)["encoder"],
+                                    "num_encoder_layers": DINO_LAYERS}
+    return Trainer({"config": os.path.join(HERE, "configs", f"{name}.yaml"), "algo": name,
+                    "arch": arch, "task": "train", "output": "graph"}, overrides=overrides,
+                   synthetic_sizes=(n_train, batch), make_dirs=False)
+
+
+def _one_epoch(trainer) -> dict:
+    """pre_train (and DeepCluster's pre_epoch), then one epoch; the losses,
+    the state on the host, the generator's state after, the graph's
+    numbers."""
+    state = trainer.algorithm.pre_train(trainer.state, trainer)
+    if trainer.algorithm.name == "deep_cluster":
+        state = trainer.algorithm.pre_epoch(state, trainer, 1)
+    _reset_launches()
+    state, metrics, _ = trainer._run_epoch(state, trainer.epoch_indices())
+    torch.cuda.synchronize()
+    tensors = {f"model.{k}": v.detach().cpu() for k, v in state.model.state_dict().items()}
+    for name, module in state.extra.items():
+        tensors.update({f"{name}.{k}": v.detach().cpu()
+                        for k, v in module.state_dict().items()})
+    graph = trainer.graph
+    return {"losses": metrics["loss"].tolist(), "tensors": tensors, "step": state.step,
+            "counter": int(state.counter), "generator": trainer.generator.get_state(),
+            "mode": trainer.epoch_mode, "launches": _launches(),
+            "graph": None if graph is None else {
+                "captured_launches": graph.launches, "replays": graph.replays,
+                "capture_s": graph.capture_s, "pool_bytes": graph.pool_bytes}}
+
+
+def _graph_agreement(name: str, arch: str, batch: int, extra: dict) -> dict:
+    """WARMUP_STEPS + GRAPH_REPLAYS float32 steps from one state and one
+    generator state, eagerly and in graph mode (the warm-up's steps eager,
+    then replays): the largest difference in the per-step losses and in the
+    state, the first step where they part, the generator states after."""
+    from ssv_tpu_torch.train.graph import WARMUP_STEPS
+
+    steps = WARMUP_STEPS + GRAPH_REPLAYS
+    runs = {}
+    # cuDNN's deterministic algorithms: in float32 (TF32 off) its default
+    # weight gradients may sum with atomics, and two eager runs then differ
+    torch.backends.cudnn.deterministic = True
+    try:
+        for jit_epoch in (False, True):
+            trainer = _graph_trainer(name, arch, batch, steps * batch, jit_epoch, True,
+                                     extra.get("encoder"))
+            runs[jit_epoch] = _one_epoch(trainer)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    eager, graph = runs[False], runs[True]
+    if eager["mode"] != "step" or graph["mode"] != "graph":
+        raise AssertionError(f"graph {name}: modes {eager['mode']} and {graph['mode']}")
+    g = graph["graph"]
+    if g["replays"] != GRAPH_REPLAYS or graph["step"] != steps or graph["counter"] != steps:
+        raise AssertionError(f"graph {name}: {g['replays']} replays, host step "
+                             f"{graph['step']}, counter {graph['counter']}; expected "
+                             f"{GRAPH_REPLAYS}, {steps}, {steps}")
+    parted = next((s for s, (a, b) in enumerate(zip(eager["losses"], graph["losses"]))
+                   if a != b), None)
+    loss_diff = max(abs(a - b) for a, b in zip(eager["losses"], graph["losses"]))
+    state_diff = max((a.double() - b.double()).abs().max().item()
+                     for a, b in zip(eager["tensors"].values(), graph["tensors"].values())
+                     if a.numel())
+    same = (parted is None and state_diff == 0
+            and torch.equal(eager["generator"], graph["generator"]))
+    want = LAUNCHES_PER_STEP[name] * steps
+    print(f"[graph] {name} {arch} float32 batch {batch}: {WARMUP_STEPS} eager warm-up steps "
+          f"and {GRAPH_REPLAYS} replays against {steps} eager steps: losses "
+          f"{'bit for bit' if parted is None else f'part at step {parted + 1}'} (largest "
+          f"difference {loss_diff:.3e}), state {state_diff:.3e} (tolerance 0: bit for bit), "
+          f"generator state after {'equal' if torch.equal(eager['generator'], graph['generator']) else 'differs'}; "
+          f"capture {g['capture_s']:.3f} s, pool {_gib(g['pool_bytes'])}, "
+          f"{g['captured_launches']} photometric launches captured, {graph['launches']} in all")
+    if not same:
+        raise AssertionError(f"graph {name}: the replays differ from the eager steps")
+    if graph["launches"] != want or eager["launches"] != want:
+        raise AssertionError(f"graph {name}: {graph['launches']} and {eager['launches']} "
+                             f"photometric launches for {steps} steps, expected {want}")
+    return {"loss_diff": loss_diff, "state_diff": state_diff, "steps": steps,
+            "launches": graph["launches"] + eager["launches"], **g}
+
+
+def _graph_views(card: str) -> None:
+    """The first replayed step's views against the eager step's from the same
+    generator state, bit for bit (SimCLR's double batch at 512, DINO's
+    multi-crop at 64); and the photometric kernel replayed from a graph
+    against its plain version on the replay's inputs."""
+    from ssv_tpu_torch.ops.photometric import fused_photometric, photometric_reference
+    from ssv_tpu_torch.tools.measure import photometric_inputs
+    from ssv_tpu_torch.train.graph import side_stream
+
+    # the trainers' one graph stream: a stream of its own would keep
+    # cuBLAS workspaces (the RRC's matmuls) that the held-memory check reads
+    side = side_stream(torch.device("cuda"))
+    for name, arch, batch, extra in GRAPH_ROWS[:3:2]:
+        trainer = _graph_trainer(name, arch, batch, 2 * batch, True, False,
+                                 extra.get("encoder"))
+        images, labels = trainer.pipeline.arrays("train")
+        idx = trainer.epoch_indices()[0]
+        start = trainer.generator.get_state()
+        eager = [trainer._batch_fn(images, labels, idx, trainer.generator) for _ in range(2)]
+        trainer.generator.set_state(start)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            trainer._batch_fn(images, labels, idx, trainer.generator)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(trainer.generator)
+        with torch.cuda.graph(graph, stream=side):
+            views = trainer._batch_fn(images, labels, idx, trainer.generator)
+        graph.replay()
+        torch.cuda.synchronize()
+        differ = [k for k in views if not torch.equal(views[k], eager[1][k])]
+        print(f"[graph] {name}: the first replayed step's views "
+              f"({', '.join(sorted(views))}) against the eager step's: "
+              f"{'bit for bit' if not differ else f'{differ} differ'}")
+        if differ:
+            raise AssertionError(f"graph {name}: replayed views {differ} differ")
+        del trainer, graph, views, eager
+    g = torch.Generator(device="cuda").manual_seed(1)
+    images, order, params, _ = photometric_inputs(512, 32, 32, g)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fused_photometric(images, order, params)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fused_photometric(images, order, params)
+    errs = []
+    for seed in (2, 3):
+        fresh = photometric_inputs(512, 32, 32, torch.Generator(device="cuda").manual_seed(seed))
+        for t, f in zip((images, order, params), fresh[:3]):
+            t.copy_(f)
+        graph.replay()
+        errs.append((out - photometric_reference(images, order, params)).abs().max().item())
+    print(f"[graph] the photometric kernel replayed from a graph on two fresh 512 x 32 x 32 "
+          f"batches: max |kernel - plain| {max(errs):.3e} (tolerance {TOL}) | {card}")
+    if max(errs) > TOL:
+        raise AssertionError(f"graph: the replayed kernel differs from its plain version")
+    _reset_launches()
+
+
+def phase_graph(card: str) -> dict:
+    """The epoch as one device program (`jit_epoch`, the JAX package's
+    default): (a) for SimCLR ResNet-18, BYOL ResNet-18 and DINO's ViT at
+    their configs' batches, and a short row for each other algorithm,
+    WARMUP_STEPS + GRAPH_REPLAYS float32 steps in graph mode against as many
+    eager steps from the same state and generator state, bit for bit
+    (losses, state, the generator after), with the photometric launches,
+    replays counted; (b) the first replayed step's views against the eager
+    step's, and the kernel replayed from a graph against its plain version;
+    (c) SimCLR ResNet-18 at bench.py's shape in step and graph mode in turns
+    (step, graph, graph, step): img/s, host ms a step, device ops a step,
+    the busy share, the capture's seconds and the graph's pool
+    (`tools/step_profile.py`'s `profile_modes`)."""
+    from ssv_tpu_torch.tools.step_profile import profile_modes
+
+    out = {"agreement": {}}
+    launches = 0
+    for name, arch, batch, extra in GRAPH_ROWS:
+        row = _graph_agreement(name, arch, batch, extra)
+        out["agreement"][name] = row
+        launches += row["launches"]
+    _graph_views(card)
+    out["speed"] = profile_modes(os.path.join(HERE, "configs", "simclr.yaml"), "resnet18",
+                                 "simclr")
+    means = out["speed"]["means"]
+    if not means["graph"]["img_per_s"] > means["step"]["img_per_s"]:
+        print("[graph] graph mode was not faster than step mode in this call")
+    out["launches"] = launches
+    return out
+
+
 def phase_resnet50(card: str) -> dict:
     """The slice's path: SimCLR ResNet-50 from configs/simclr.yaml (batch
     512) through the CLI for one epoch with KNN and the probe, then
@@ -553,7 +825,6 @@ def phase_resnet50(card: str) -> dict:
     the busy share (step_profile on the trained Trainer), the peak memory
     above what the run inherits, and the probe's seconds."""
     from ssv_tpu_torch import main as cli
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.tools.step_profile import profile_trainer
     from ssv_tpu_torch.train.trainer import STEADY_AFTER
 
@@ -562,9 +833,9 @@ def phase_resnet50(card: str) -> dict:
                 "-a", "simclr"]
         run = os.path.join(tmp, "run")
         held = _held_before_run("simclr resnet50")
-        fused_photometric.launches = 0
+        _reset_launches()
         trainer = cli.main([*argv, "-t", "train", "-o", run])
-        launches = fused_photometric.launches
+        launches = _launches()
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - held
         stats = trainer.epoch_stats[-1]
@@ -605,7 +876,6 @@ def phase_bottleneck_family(card: str) -> dict:
     """SimCLR from configs/simclr.yaml (batch 512) on each arch of FAMILY_C,
     10 train steps each through the Trainer: img/s of steps 6-10, the
     forward GFLOP a view, the peak memory above what each run inherits."""
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.train.trainer import STEADY_AFTER, Trainer
 
     out = {}
@@ -616,9 +886,10 @@ def phase_bottleneck_family(card: str) -> dict:
                                "algo": "simclr", "arch": arch, "task": "train",
                                "output": os.path.join(tmp, "run")})
             idx_mat = trainer.pipeline.epoch_indices(trainer.generator)[:10]
-            fused_photometric.launches = 0
+            _reset_launches()
             state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
-            launches = fused_photometric.launches
+            launches = _launches()
+            _check_mode(arch, trainer.epoch_mode)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - held
             fwd, _ = _train_gflop_per_view(state.model, trainer.algorithm)
@@ -695,7 +966,6 @@ def phase_transforms(card: str) -> dict:
     import yaml
 
     from ssv_tpu_torch.data import augment as A
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.tools.measure import times_ms
     from ssv_tpu_torch.train.trainer import STEADY_AFTER, Trainer
 
@@ -733,9 +1003,10 @@ def phase_transforms(card: str) -> dict:
                   f"{ms:.4f} ms a batch (CUDA events, median) | {card}")
         del x, gd
         idx_mat = trainer.pipeline.epoch_indices(trainer.generator)[:10]
-        fused_photometric.launches = 0
+        _reset_launches()
         state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
-        launches = fused_photometric.launches
+        launches = _launches()
+        _check_mode("transforms", trainer.epoch_mode)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - held
         losses = metrics["loss"].tolist()
@@ -768,7 +1039,6 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
     what at_stop returned)` at the resumed run's first epoch start; what they
     return comes back under those names."""
     from ssv_tpu_torch import main as cli
-    from ssv_tpu_torch.ops.photometric import fused_photometric
 
     first = {}
 
@@ -802,7 +1072,7 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
         return hook
 
     held = [_held_before_run(f"{name} epoch 1")]
-    fused_photometric.launches = 0
+    _reset_launches()
     with _Hooks(pre_epoch=stop_after_epoch_1):
         try:
             cli.main([*argv, "-t", "train", "-o", run])
@@ -819,7 +1089,7 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
     held.append(_held_before_run(f"{name} resumed"))
     with _Hooks(**({"pre_epoch": check_resume} if at_resume is not None else {})):
         resumed = cli.main([*argv, "-t", "train", "-o", run, "-l", run])
-    launches = fused_photometric.launches
+    launches = _launches()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - held[1]
 
@@ -883,7 +1153,6 @@ def phase_byol(card: str) -> dict:
 def phase_family(card: str) -> dict:
     """SimSiam, ReLIC and Barlow Twins ResNet-18 from their shipped configs,
     10 train steps each through the Trainer. Returns the launches of each."""
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.train.trainer import STEADY_AFTER, Trainer
 
     out = {}
@@ -896,9 +1165,10 @@ def phase_family(card: str) -> dict:
             idx_mat = trainer.pipeline.epoch_indices(trainer.generator)[:10]
             target = trainer.state.extra.get("target")
             before = [p.detach().clone() for p in target.parameters()] if target else []
-            fused_photometric.launches = 0
+            _reset_launches()
             state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
-            launches = fused_photometric.launches
+            launches = _launches()
+            _check_mode(name, trainer.epoch_mode)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - held
         losses = metrics["loss"].tolist()
@@ -950,7 +1220,6 @@ def phase_swav(card: str) -> dict:
     3000 bank rows, hidden 512) for one epoch through the CLI, with KNN and
     the probe: `pre_train` leaves no zero row in the bank."""
     from ssv_tpu_torch import main as cli
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.train.trainer import STEADY_AFTER
 
     seen = {}
@@ -965,7 +1234,7 @@ def phase_swav(card: str) -> dict:
             bank = state.extra["bank"].data
             seen["zero_rows"] = int((bank.abs().sum(dim=1) == 0).sum())
             seen["rows"] = bank.shape[0]
-            seen["launches"] = fused_photometric.launches
+            seen["launches"] = _launches()
             return state
         return hook
 
@@ -973,10 +1242,10 @@ def phase_swav(card: str) -> dict:
         argv = ["-c", _config(tmp, "swav", epochs=1, eval_every=1), "-m", "resnet18",
                 "-a", "swav", "-t", "train", "-o", os.path.join(tmp, "run")]
         held = _held_before_run("swav")
-        fused_photometric.launches = 0
+        _reset_launches()
         with _Hooks(pre_train=check_bank):
             trainer = cli.main(argv)
-        launches = fused_photometric.launches
+        launches = _launches()
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - held
     stats = trainer.epoch_stats
@@ -1007,7 +1276,6 @@ def phase_sela(card: str) -> dict:
     has `SSV_TPU_PROFILE_DIR` set: `_check_trace` reads the trace of epoch
     2."""
     from ssv_tpu_torch import main as cli
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.train.trainer import STEADY_AFTER
 
     sweeps = []
@@ -1015,12 +1283,12 @@ def phase_sela(card: str) -> dict:
     def timed(self_label):
         def hook(state, trainer):
             torch.cuda.synchronize()
-            t0, launches = time.perf_counter(), fused_photometric.launches
+            t0, launches = time.perf_counter(), _launches()
             state = self_label(state, trainer)
             torch.cuda.synchronize()
             labels = state.extra["self_label"].pseudo_labels
             sweeps.append({"seconds": time.perf_counter() - t0,
-                           "launches": fused_photometric.launches - launches,
+                           "launches": _launches() - launches,
                            "clusters": int(labels.unique().numel())})
             return state
         return hook
@@ -1030,14 +1298,14 @@ def phase_sela(card: str) -> dict:
                 "-a", "sela", "-t", "train", "-o", os.path.join(tmp, "run")]
         profile_dir = os.path.join(tmp, "profile")
         held = _held_before_run("sela")
-        fused_photometric.launches = 0
+        _reset_launches()
         os.environ["SSV_TPU_PROFILE_DIR"] = profile_dir
         try:
             with _Hooks(self_label=timed):
                 trainer = cli.main(argv)
         finally:
             del os.environ["SSV_TPU_PROFILE_DIR"]
-        launches = fused_photometric.launches
+        launches = _launches()
         torch.cuda.synchronize()
         trace = _check_trace(profile_dir, trainer.epoch_stats[1]["steps"], card)
     peak = torch.cuda.max_memory_allocated() - held
@@ -1347,17 +1615,16 @@ def phase_quality(card: str) -> dict:
     photometric launches a step. Then SimCLR on `tiny` (synth100 at 5,120 /
     1,024) with epoch 1's parameters filled with NaN by a `pre_epoch` hook:
     `nan_at` 1, `linear` null, the probe never called."""
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.train.trainer import Trainer
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         held = _held_before_run("quality simclr")
-        fused_photometric.launches = 0
+        _reset_launches()
         rc, row = _quality_main(
             ["--algos", "simclr", "--epochs", str(QUALITY_EPOCHS), "--eval-every", "1",
              "--dataset", "synth100", "--tag", "smoke", "--out", os.path.join(tmp, "smoke.md")])
-        launches = fused_photometric.launches
+        launches = _launches()
         peak = torch.cuda.max_memory_allocated() - held
         with open(os.path.join(tmp, "smoke.md")) as f:
             table = f.read()
@@ -1394,7 +1661,7 @@ def phase_quality(card: str) -> dict:
     probe = Trainer.perform_linear_eval
     with tempfile.TemporaryDirectory() as tmp:
         _held_before_run("quality nan")
-        fused_photometric.launches = 0
+        _reset_launches()
         Trainer.perform_linear_eval = counted
         try:
             with _Hooks(pre_epoch=nan_at_epoch_1):
@@ -1404,7 +1671,7 @@ def phase_quality(card: str) -> dict:
                      "--tag", "nan", "--out", os.path.join(tmp, "nan.md")])
         finally:
             Trainer.perform_linear_eval = probe
-        nan_launches = fused_photometric.launches
+        nan_launches = _launches()
     print(f"[quality] simclr tiny with NaN parameters at epoch 1: exit {rc}, nan_at "
           f"{row.get('nan_at')}, KNN curve {row.get('knn_curve')}, linear {row.get('linear')}, "
           f"probe calls {len(probes)}, the JSON line strict; {nan_launches} photometric "
@@ -1430,17 +1697,16 @@ def phase_sweep(card: str) -> dict:
     losses, a KNN in [0, 1], the photometric launches per step of each
     algorithm; each row's img/s beside its committed floor (printed, not a
     gate: one call's host decides it)."""
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.tools import sweep
 
     with tempfile.TemporaryDirectory() as tmp:
         results = os.path.join(tmp, "results.json")
         held = _held_before_run("sweep")
-        fused_photometric.launches = 0
+        _reset_launches()
         rc = sweep.main([str(SWEEP_EPOCHS), "--no-write", "--results", results,
                          "--n-train", str(SWEEP_SIZES[0]), "--n-test", str(SWEEP_SIZES[1]),
                          "--table", os.path.join(tmp, "table.md")])
-        launches = fused_photometric.launches
+        launches = _launches()
         peak = torch.cuda.max_memory_allocated() - held
         with open(results) as f:
             run = json.load(f)
@@ -1546,16 +1812,15 @@ def _ddp_collectives(device) -> dict:
 
 def _ddp_trainer_steps(cfg_path: str, out_dir: str, device) -> dict:
     """DDP_STEPS steps of the `Trainer` on the epoch's first rows."""
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.parallel.dryrun import digest
     from ssv_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer({"config": cfg_path, "algo": "simclr", "arch": "resnet18",
                        "task": "train", "output": out_dir}, device=device)
     idx_mat = trainer.epoch_indices()[:DDP_STEPS]
-    fused_photometric.launches = 0
+    _reset_launches()
     state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
-    launches = fused_photometric.launches
+    launches = _launches()
     out = {"losses": metrics["loss"].tolist(), "launches": launches, "img_per_s": steady,
            "per_rank_batch": idx_mat.shape[1] // 2,
            "digest": digest(state.model, *state.extra.values())}
@@ -1745,7 +2010,6 @@ def _swav_bf16_steps(device) -> dict:
 
     from ssv_tpu_torch.data.pipeline import DataPipeline
     from ssv_tpu_torch.objectives.losses import l2_normalize
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.parallel import batch_slice, mesh, per_device
     from ssv_tpu_torch.parallel.dryrun import digest
     from ssv_tpu_torch.state.banks import ring_push
@@ -1767,7 +2031,7 @@ def _swav_bf16_steps(device) -> dict:
     generator = torch.Generator(device=device).manual_seed(mesh.data_rank())
     idx_mat = torch.arange(b * TP_STEPS, device=device).reshape(TP_STEPS, b)
     losses = []
-    fused_photometric.launches = 0
+    _reset_launches()
     for s in range(TP_STEPS):
         if s == TP_STEPS // 2:       # the second half is timed
             torch.cuda.synchronize(device)
@@ -1780,7 +2044,7 @@ def _swav_bf16_steps(device) -> dict:
     timed = TP_STEPS - TP_STEPS // 2
     seconds = time.perf_counter() - t0
     coll = per_device.collectives
-    out = {"losses": losses, "launches": fused_photometric.launches,
+    out = {"losses": losses, "launches": _launches(),
            "tower": digest(state.model.tower, state.extra["bank"]),
            "shard": digest(state.model.prototypes), "step_ms": 1e3 * seconds / timed,
            "collectives_per_step": coll.calls / timed, "mb_per_step": coll.bytes / timed / 1e6,
@@ -1795,7 +2059,6 @@ def _swav_bf16_steps(device) -> dict:
 def _tp_rank(rank: int, world: int, part: str, tmp: str) -> None:
     """One rank on the one card over gloo: part "a" at (1 x 2), part "b" the
     dry run's DPxTP phase at 4 ranks."""
-    from ssv_tpu_torch.ops.photometric import fused_photometric
     from ssv_tpu_torch.parallel import batch_slice, dryrun, mesh
 
     device = mesh.init("cuda:0", backend="gloo", init_method=f"file://{tmp}/group-{part}",
@@ -1814,9 +2077,9 @@ def _tp_rank(rank: int, world: int, part: str, tmp: str) -> None:
             del algo, state
             out["bf16"] = _swav_bf16_steps(device)
         else:
-            fused_photometric.launches = 0
+            _reset_launches()
             dryrun.phase_dp_tp_swav(device)
-            out = {"launches": fused_photometric.launches}
+            out = {"launches": _launches()}
     finally:
         mesh.destroy()
     torch.save(out, os.path.join(tmp, f"{part}-rank{rank}.pt"))
@@ -2037,7 +2300,8 @@ def main() -> None:
     kernels = _timed("kernels", phase_kernels, card)
     _timed("small steps", phase_small_steps, ["simclr", "simclr-bottleneck", "simclr-tiny"])
     slice_out = _timed("simclr", phase_slice, card)
-    paths = {"simclr": slice_out["launches"],
+    paths_graph = _timed("graph", phase_graph, card)["launches"]
+    paths = {"simclr": slice_out["launches"], "graph": paths_graph,
              "simclr-resnet50": _timed("resnet50", phase_resnet50, card)["launches"]}
     paths.update({f"simclr-{k}": v["launches"] for k, v in
                   _timed("bottleneck family", phase_bottleneck_family, card).items()})

@@ -21,9 +21,10 @@ photometric kernel (ops/photometric.py) whenever the pipeline starts with it.
 from __future__ import annotations
 
 import math
-from functools import partial
+from functools import lru_cache, partial
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..ops.photometric import (_blend, _gray, _hue, fused_photometric,  # noqa: F401
@@ -46,9 +47,16 @@ def to_float(img_u8):
     return _div255(img_u8.to(torch.float32))
 
 
+@lru_cache(maxsize=None)
+def _channel_constant(values: tuple, device: torch.device) -> torch.Tensor:
+    """A per-channel float32 constant on `device`, copied there at its first
+    use: a step the trainer captures as a CUDA graph copies nothing from the
+    host, and its eager warm-up makes the copy first."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
 def normalize(img, mean, std):
-    mean = torch.as_tensor(mean, dtype=torch.float32, device=img.device)
-    std = torch.as_tensor(std, dtype=torch.float32, device=img.device)
+    mean, std = (_channel_constant(tuple(map(float, v)), img.device) for v in (mean, std))
     return (img - mean) / std
 
 
@@ -181,6 +189,14 @@ def crop_resize(img, box_ijhw, out_size, method: str = "linear"):
                      (1.0 / (out_w / w), -j * out_w / w), out_size, method)
 
 
+def _uniform(u, lo: float, hi: float):
+    """u in [0, 1) mapped to [lo, hi) in float32, as max(lo, u (hi - lo) +
+    lo) with lo, hi and their difference rounded to float32 (host numbers:
+    no copy to the device inside a step)."""
+    lo, hi = np.float32(lo), np.float32(hi)
+    return torch.clamp(u * float(hi - lo) + float(lo), min=float(lo))
+
+
 def sample_rrc_box(in_size, scale, u_area, u_ratio, u_i, u_j,
                    ratio=(3.0 / 4.0, 4.0 / 3.0)):
     """torchvision RandomResizedCrop.get_params, batched and given its
@@ -190,15 +206,8 @@ def sample_rrc_box(in_size, scale, u_area, u_ratio, u_i, u_j,
     Sizes round half to even and offsets truncate, as the JAX version does.
     Returns (i, j, h, w), each (B,) int32."""
     H, W = in_size
-    dev = u_area.device
-
-    def uniform(u, lo, hi):
-        lo = torch.tensor(lo, dtype=torch.float32, device=dev)
-        hi = torch.tensor(hi, dtype=torch.float32, device=dev)
-        return torch.maximum(lo, u * (hi - lo) + lo)
-
-    target_area = float(H * W) * uniform(u_area, scale[0], scale[1])
-    ar = torch.exp(uniform(u_ratio, math.log(ratio[0]), math.log(ratio[1])))
+    target_area = float(H * W) * _uniform(u_area, scale[0], scale[1])
+    ar = torch.exp(_uniform(u_ratio, math.log(ratio[0]), math.log(ratio[1])))
     ws = torch.round(torch.sqrt(target_area * ar)).to(torch.int32)
     hs = torch.round(torch.sqrt(target_area / ar)).to(torch.int32)
     valid = (ws > 0) & (ws <= W) & (hs > 0) & (hs <= H)
@@ -366,8 +375,7 @@ def gaussian_blur(generator, img, sigma=(0.1, 2.0), kernel_radius: int = 4):
     """PIL GaussianBlur with radius ~ U[sigma0, sigma1]: draws one uniform
     per image."""
     u = torch.rand(img.shape[0], generator=generator, device=img.device)
-    lo, hi = (torch.tensor(v, dtype=torch.float32, device=img.device) for v in sigma)
-    return gaussian_blur_sigma(img, torch.maximum(lo, u * (hi - lo) + lo), kernel_radius)
+    return gaussian_blur_sigma(img, _uniform(u, *sigma), kernel_radius)
 
 
 # PIL's smooth filter, each weight rounded to float32 as the JAX version's
@@ -386,7 +394,7 @@ def sharpness(img, factor):
             if i or j:
                 smooth = smooth + pad[:, i:i + H, j:j + W] * k[i][j]
     inner = torch.zeros(H, W, 1, dtype=torch.bool, device=img.device)
-    inner[1:H - 1, 1:W - 1] = True
+    inner[1:H - 1, 1:W - 1].fill_(True)   # a fill on the device, no host copy
     smooth = torch.where(inner, smooth, img)
     return _blend(img, smooth, _per_image(factor, img))
 

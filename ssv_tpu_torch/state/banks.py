@@ -75,5 +75,7 @@ def sample_negatives(generator: torch.Generator, bank: SampleBank, exclude_idx,
     rows not in `exclude_idx`: uniform scores, -inf at the excluded rows,
     top-k."""
     scores = torch.rand(bank.data.shape[0], generator=generator, device=bank.data.device)
-    scores[exclude_idx] = -torch.inf
+    # a fill on the device (an index write of a host number copies it from
+    # the host, which a captured step cannot)
+    scores.index_fill_(0, exclude_idx, -torch.inf)
     return bank.data[torch.topk(scores, num_negatives).indices]

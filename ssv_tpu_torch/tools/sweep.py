@@ -169,7 +169,6 @@ def run_row(name: str, algo: str, arch: str, batch: int, overrides: dict, epochs
     after the last. Returns its row, with the batch it ran (DINO's is
     `mini_config`'s 8, whatever the row says, as in the JAX sweep), the
     photometric launches and the train steps of the run."""
-    from ..ops.photometric import fused_photometric
     from ..train.trainer import Trainer
 
     t0 = time.time()
@@ -181,7 +180,7 @@ def run_row(name: str, algo: str, arch: str, batch: int, overrides: dict, epochs
     tr = Trainer({"config": os.path.join(d, "cfg.yaml"), "algo": algo, "arch": arch,
                   "task": "train", "output": os.path.abspath(os.path.join(d, "run")),
                   "load": None}, synthetic_sizes=sizes, device=device)
-    launches = fused_photometric.launches
+    launches = tr.photometric_launches()
     state = tr.algorithm.pre_train(tr.state, tr)
     losses, ips = [], []
     for e in range(1, epochs + 1):
@@ -193,7 +192,7 @@ def run_row(name: str, algo: str, arch: str, batch: int, overrides: dict, epochs
         losses.append(round(float(metrics["loss"].mean()), 4))
         ips.append(idx_mat.numel() / (time.time() - te))
     tr.state = state
-    launches = fused_photometric.launches - launches
+    launches = tr.photometric_launches() - launches
     knn = tr.knn_validate()
     row = {"algo": name, "arch": arch, "batch": tr.pipeline.batch_size, "losses": losses,
            "knn": round(knn, 4), "img_per_sec": round(max(ips)),

@@ -8,8 +8,9 @@ projector), symmetric MSE on L2-normalized outputs.
     statistics and advances its own running statistics, as the flax target's
     `batch_stats` do;
   * tau follows the cosine ramp tau_lower -> tau_upper over the global step,
-    taken at the step before the update; the EMA runs after the optimizer
-    step, over the online encoder and projector (not the predictor).
+    taken at the step before the update (a step table, read at the device
+    counter); the EMA runs after the optimizer step, over the online encoder
+    and projector (not the predictor).
 """
 
 from __future__ import annotations
@@ -51,6 +52,9 @@ class BYOL(Algorithm):
     def tau(self, step: int) -> float:
         return cosine_ramp(step, self.total_steps, self.tau_lower, self.tau_upper)
 
+    def step_tables(self):
+        return {"tau": self.tau}
+
     def target_views(self, state: TrainState, views: list) -> list:
         """The target's outputs, float32, without a graph; its BN runs in
         train mode and advances its running statistics."""
@@ -58,7 +62,7 @@ class BYOL(Algorithm):
         with torch.no_grad(), self.autocast():
             return [t.float() for t in forward_views(target, views, self.fuse)]
 
-    def ema(self, state: TrainState, tau: float) -> None:
+    def ema(self, state: TrainState, tau) -> None:
         online, target = state.model, state.extra["target"]
         ema_update([*target.encoder.parameters(), *target.proj.parameters()],
                    [*online.encoder.parameters(), *online.proj.parameters()], tau)
@@ -70,10 +74,10 @@ class BYOL(Algorithm):
         with self.autocast():
             o1, o2 = forward_views(state.model, views, self.fuse)
         loss = byol_mse(o1.float(), o2.float(), t1, t2)
-        tau = self.tau(state.step)
+        tau = state.scheduler.at("tau")
         state, loss = self.grad_step(state, loss)
         self.ema(state, tau)
-        return state, {"loss": loss, "tau": torch.tensor(tau)}
+        return state, {"loss": loss, "tau": tau}
 
     @torch.no_grad()
     def embed(self, state: TrainState, images):

@@ -25,7 +25,10 @@ with a centred, sharpened teacher.
     the cosine lambda of the global step;
   * `freeze_last_layer: N` keeps the head's `fc_out` as it is for the first
     N epochs (its update zeroed; Adam's moments still take its gradients,
-    as in the JAX package);
+    as in the JAX package), chosen on the device at each step;
+  * the per-step numbers (the teacher temperature, the decay, the frozen
+    flag, the step-wise lambda) are step tables read at the device counter
+    (`step_tables`), so a step reads nothing on the host;
   * `fuse_views` (default: on for the ViT, whose LayerNorm couples no
     samples, off for BN towers) runs each group of same-size views as one
     forward.
@@ -103,6 +106,15 @@ class DINO(Algorithm):
         return dino_teacher_temp(epoch, lower=self.temp_t_lower, upper=self.temp_t_upper,
                                  warmup_epochs=self.temp_warmup_epochs)
 
+    def step_tables(self):
+        spe = self.data.steps_per_epoch
+        return {
+            "teacher_temp": lambda s: self.teacher_temp(s // spe),
+            "frozen": lambda s: float(s < self.freeze_last_layer * spe),
+            "lambda": lambda s: cosine_ramp(s, self.total_steps, self.lambda_lower,
+                                            self.lambda_upper),
+        }
+
     def init_state(self, generator: torch.Generator) -> TrainState:
         student = self.place(self.student, generator)
         teacher = self.place(self.teacher, generator).requires_grad_(False)
@@ -120,7 +132,7 @@ class DINO(Algorithm):
         vl = batch["local_1"].shape[1]
         g1, g2, l1, l2 = (batch[k].flatten(0, 1)
                           for k in ("global_1", "global_2", "local_1", "local_2"))
-        temp_t = self.teacher_temp(state.step // self.data.steps_per_epoch)
+        temp_t = state.scheduler.at("teacher_temp")
 
         teacher = state.extra["teacher"].train()
         with torch.no_grad(), self.autocast():
@@ -137,10 +149,10 @@ class DINO(Algorithm):
         loss = (0.5 * dino_loss(t1, s2, self.temp_student, temp_t, center)
                 + 0.5 * dino_loss(t2, s1, self.temp_student, temp_t, center))
 
-        step = state.step
         frozen = None
-        if step < self.freeze_last_layer * self.data.steps_per_epoch:
-            frozen = list(model.proj.fc_out.parameters())
+        if self.freeze_last_layer:
+            frozen = (list(model.proj.fc_out.parameters()), state.scheduler.at("frozen") > 0)
+        lbd = state.scheduler.at("lambda") if self.teacher_update == "step" else None
         state, loss = self.grad_step(state, loss, update_mask=frozen)
 
         with torch.no_grad():
@@ -148,8 +160,7 @@ class DINO(Algorithm):
             t_mean = pmean(torch.cat([t1.flatten(0, 1), t2.flatten(0, 1)])
                            .mean(dim=0, keepdim=True))
             center.copy_(self.center_m * center + (1 - self.center_m) * t_mean)
-        if self.teacher_update == "step":
-            lbd = cosine_ramp(step, self.total_steps, self.lambda_lower, self.lambda_upper)
+        if lbd is not None:
             ema_update(teacher.parameters(), model.parameters(), lbd)
         return state, {"loss": loss}
 

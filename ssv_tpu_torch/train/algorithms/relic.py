@@ -35,7 +35,7 @@ class ReLIC(BYOL):
         o1, o2, orig = pgather(o1.float()), pgather(o2.float()), pgather(orig.float())
         loss = (relic_loss(o1, t2, orig, **self.loss_cfg)
                 + relic_loss(o2, t1, orig, **self.loss_cfg))
-        tau = self.tau(state.step)
+        tau = state.scheduler.at("tau")
         state, loss = self.grad_step(state, loss, loss_scope="global")
         self.ema(state, tau)
         return state, {"loss": loss}

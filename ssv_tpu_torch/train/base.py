@@ -12,6 +12,12 @@ and in `extra` the algorithm's other modules (an EMA target), so a
 checkpoint is one save; `grad_step` is the shared backward + optimizer
 update.
 
+A step reads nothing on the host, so the trainer can capture it as a CUDA
+graph and replay it: its per-step numbers (the learning rate, BYOL's tau,
+DINO's teacher temperature) are the scheduler's tables read at the device
+step counter (`train/optim.py`, `Algorithm.step_tables`), and every state
+update is in place. `state.step` is the host's count of the same steps.
+
 Across ranks (`parallel/`) each rank steps its replica on its slice of the
 global batch: `place` switches the BatchNorms to global statistics unless
 the config asks for `per_device_bn`, and `grad_step` averages the
@@ -30,15 +36,21 @@ import torch
 
 from ..parallel import pmean, pmean_bn_, reduce_grads, sync_batchnorm
 from ..parallel.mesh import data_size
+from .optim import StepSchedule, get_optimizer
 
 
 @dataclass
 class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
-    scheduler: torch.optim.lr_scheduler.LRScheduler
+    scheduler: StepSchedule
     step: int = 0
     extra: dict[str, torch.nn.Module] = field(default_factory=dict)
+
+    @property
+    def counter(self) -> torch.Tensor:
+        """The steps taken, an int64 on the device (the scheduler's)."""
+        return self.scheduler.counter
 
 
 @dataclass
@@ -81,10 +93,14 @@ class Algorithm:
         return cfg
 
     def autocast(self):
-        """The mixed-precision region for model forwards."""
+        """The mixed-precision region for model forwards. It keeps no
+        weight-cast cache: a cache made while the trainer captures the step
+        as a CUDA graph would outlive the capture, and without one the eager
+        and the captured step launch the same ops."""
         if self.autocast_dtype is None:
             return contextlib.nullcontext()
-        return torch.autocast(self.device.type, dtype=self.autocast_dtype)
+        return torch.autocast(self.device.type, dtype=self.autocast_dtype,
+                              cache_enabled=False)
 
     # -- required -----------------------------------------------------
     def init_state(self, generator: torch.Generator) -> TrainState:
@@ -137,11 +153,18 @@ class Algorithm:
                            epochs=self.epochs,
                            steps_per_epoch=self.data.steps_per_epoch)
 
+    def step_tables(self) -> dict[str, Callable[[int], float]]:
+        """The algorithm's own per-step numbers as functions of the global
+        step (BYOL's tau, DINO's teacher temperature), by name: the
+        scheduler tables them beside the learning rate, and a step reads
+        them at the device counter with `state.scheduler.at(name)`."""
+        return {}
+
     def make_optimizer(self, model: torch.nn.Module, weight_decay_fn=None, grad_clip=None):
-        from .optim import get_optimizer
         return get_optimizer(dict(self.config["optimizer"]), model.parameters(),
                              self.lr_fn(), weight_decay_fn=weight_decay_fn,
-                             grad_clip=grad_clip)
+                             grad_clip=grad_clip, steps=self.total_steps + 1,
+                             tables=self.step_tables())
 
     def reduce_gradients(self, state: TrainState, loss_scope: str) -> None:
         """Means each gradient over the ranks that hold its parameter: the
@@ -156,20 +179,25 @@ class Algorithm:
         `loss_scope` says how the loss was built: "local", a per-sample
         mean over this rank's slice, or "global", one loss from gathered
         rows (`parallel/per_device.py` derives why both take the mean).
-        The parameters in `update_mask` keep their values through the step:
-        their optimizer *update* is zeroed, so decoupled weight decay does
-        not move them either, while the optimizer's moments take their
-        gradients as usual (the JAX package's `update_mask`). Under
-        `per_device_bn` the BN running statistics of the state's modules
-        are replica-meaned after the step."""
+        `update_mask`, a pair (params, on) with `on` a 0-dim bool on the
+        device: where `on` holds, the params keep their values through the
+        step, chosen on the device. Their optimizer *update* is zeroed, so
+        decoupled weight decay does not move them either, while the
+        optimizer's moments take their gradients as usual (the JAX
+        package's `update_mask`). Under `per_device_bn` the BN running
+        statistics of the state's modules are replica-meaned after the step.
+        The gradients are set to None before the backward, which allocates
+        them anew (inside a captured step, from the graph's pool: they stay
+        the graph's until it is dropped)."""
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.reduce_gradients(state, loss_scope)
-        frozen = [p.detach().clone() for p in update_mask or ()]
+        masked, on = update_mask or ((), None)
+        frozen = [p.detach().clone() for p in masked]
         state.optimizer.step()
-        if frozen:
-            with torch.no_grad():
-                torch._foreach_copy_(list(update_mask), frozen)
+        with torch.no_grad():
+            for p, old in zip(masked, frozen):
+                p.copy_(torch.where(on, old, p))
         state.scheduler.step()
         state.step += 1
         if self.per_device_bn:

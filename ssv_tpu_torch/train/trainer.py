@@ -3,10 +3,17 @@
 Experiment init, the epoch loop, KNN validation every `eval_every` epochs
 with full-state checkpoints (`best_model` when KNN improves, `latest` at
 every eval), and a final linear probe whose accuracy `train()` returns.
-An epoch is a Python loop of steps over a (steps, batch) index matrix drawn
-on the device; augmentation, forward, backward and the optimizer update all
-stay on the device, and the per-step losses are read to the host once per
-epoch. `train_safe()` flushes `latest` on an interrupt or error, and
+An epoch runs the steps of a (steps, batch) index matrix drawn on the
+device; augmentation, forward, backward, the optimizer update and the
+algorithm's state updates all stay on the device, each step writes its
+metrics into a (steps,) buffer on the device, and the host reads them once
+per epoch. How the steps run is `epoch_mode` (`_epoch_mode` states the
+rule): "graph", the JAX package's default (`jit_epoch` unset or true: the
+epoch as one program), runs the step captured once as a CUDA graph and
+replayed for every step (`train/graph.py`); "step", JAX's debugging mode
+(`jit_epoch: false`), the CPU and a run across ranks, runs the same step
+eagerly. Both give the same results from the same state and draws.
+`train_safe()` flushes `latest` on an interrupt or error, and
 `args["load"]` resumes from a run's directory. With `SSV_TPU_PROFILE_DIR`
 set, `train()` writes a `torch.profiler` trace of one epoch there.
 
@@ -35,11 +42,12 @@ from ..data.pipeline import DataPipeline
 from ..evals.knn import compute_neighbor_accuracy
 from ..evals.linear import linear_evaluation
 from ..ops.photometric import fused_photometric
-from ..parallel import batch_slice, pgather, rank, replicate
+from ..parallel import batch_slice, pgather, rank, replicate, world_size
 from ..parallel.mesh import barrier, broadcast_, data_rank
 from ..utils.logging import get_wandb, progress_bar
 from .base import DataInfo, TrainState
 from .checkpoint import restore_state, save_state
+from .graph import StepGraph
 from .registry import build_algorithm
 
 STEADY_AFTER = 5  # steps of an epoch left out of its steady-state img/s
@@ -124,6 +132,15 @@ class Trainer:
         self.linear_eval_stats: dict | None = None
         self._tracing = False   # inside `_trace`: each step is a profiler span
 
+        self.epoch_mode, self.epoch_mode_reason = self._epoch_mode()
+        # the epoch's inputs and outputs on the device, at fixed addresses (a
+        # captured step reads and writes them): the index matrix, the
+        # position of the step in it, one (steps,) buffer a metric
+        self._epoch_idx: torch.Tensor | None = None
+        self._pos = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._metric_bufs: dict[str, torch.Tensor] = {}
+        self.graph: StepGraph | None = None
+
         if self.args.get("load"):
             self.load_checkpoint(self.args["load"])
 
@@ -207,6 +224,20 @@ class Trainer:
                 json.dump(meta, f)
         barrier()
 
+    def _epoch_mode(self) -> tuple[str, str]:
+        """("graph" or "step", why). Graph, the JAX package's default
+        whole-epoch program, where `jit_epoch` is unset or true on a CUDA
+        device in one process; step where `jit_epoch` is false (JAX's
+        debugging mode), on the CPU (no CUDA graphs there), and across
+        ranks (the step's collectives are not captured)."""
+        if not self.config.get("jit_epoch", True):
+            return "step", "jit_epoch: false"
+        if self.device.type != "cuda":
+            return "step", f"{self.device.type}: no CUDA graphs"
+        if world_size() > 1:
+            return "step", f"{world_size()} ranks: collectives are not captured"
+        return "graph", "jit_epoch: true, one CUDA process"
+
     def load_checkpoint(self, ckpt_dir: str, name: str | None = None):
         """Restores the full state from `ckpt_dir`: `name` if given, else
         for `train` the rolling `latest` first (exact resume), then
@@ -224,6 +255,9 @@ class Trainer:
         for cand in candidates:
             path = os.path.join(ckpt_dir, cand)
             if os.path.exists(path):
+                # the optimizer's loaded state replaces the tensors a
+                # captured step holds: drop the graph, capture anew
+                self.graph = None
                 restore_state(path, self.state, self.generator if train else None)
                 meta_path = os.path.join(ckpt_dir, f"{cand}.meta.json")
                 if os.path.exists(meta_path):
@@ -236,33 +270,74 @@ class Trainer:
         raise FileNotFoundError(f"No checkpoint under {ckpt_dir} ({candidates})")
 
     # ------------------------------------------------------------------
+    def _train_step(self, state: TrainState) -> None:
+        """One train step, reading nothing on the host: the step's index row
+        at the epoch position, its batch, the algorithm's step, its metrics
+        written at the position, the position advanced. The graph captures
+        exactly this."""
+        images, labels = self.pipeline.arrays("train")
+        idx = torch.index_select(self._epoch_idx, 0, self._pos.reshape(1))[0]
+        batch = self._batch_fn(images, labels, batch_slice(idx), self.generator)
+        _, metrics = self.algorithm.train_step(state, batch, self.generator)
+        for k, v in metrics.items():
+            if k not in self._metric_bufs:
+                self._metric_bufs[k] = torch.empty(self._epoch_idx.shape[0], dtype=v.dtype,
+                                                   device=self.device)
+            self._metric_bufs[k].index_copy_(0, self._pos.reshape(1), v.reshape(1))
+        self._pos.add_(1)
+
+    def begin_epoch(self, idx_mat: torch.Tensor) -> None:
+        """Puts the epoch's index matrix where the step reads it, at the
+        first step."""
+        if self._epoch_idx is None or self._epoch_idx.shape != idx_mat.shape:
+            self.graph = None
+            self._epoch_idx = torch.empty_like(idx_mat)
+            self._metric_bufs = {}
+        self._epoch_idx.copy_(idx_mat)
+        self._pos.zero_()
+
+    def step(self, state: TrainState) -> None:
+        """The next step of the epoch in the trainer's mode: eager, or a
+        replay of the captured step (the first steps warm up and capture
+        it)."""
+        if state.scheduler.reserve(state.step):
+            # steps past the run's end (a profile after training) refilled
+            # the schedule tables: the captured step reads the old ones
+            self.graph = None
+        if self.epoch_mode == "step":
+            self._train_step(state)
+            return
+        if self.graph is None:
+            self.graph = StepGraph()
+        self.graph.step(self, state)
+
     def _run_epoch(self, state: TrainState, idx_mat: torch.Tensor):
         """All steps of one epoch. Returns (state, {metric: (steps,) host
         tensor}, steady-state img/s or None off CUDA). Under `_trace` each
         step is a span `step <s>`."""
-        images, labels = self.pipeline.arrays("train")
         cuda = self.device.type == "cuda"
-        collected: dict[str, list] = {}
         events = []
+        self.begin_epoch(idx_mat)
         for s in range(idx_mat.shape[0]):
             with (torch.profiler.record_function(f"step {s}") if self._tracing
                   else contextlib.nullcontext()):
-                batch = self._batch_fn(images, labels, batch_slice(idx_mat[s]),
-                                       self.generator)
-                state, metrics = self.algorithm.train_step(state, batch, self.generator)
-            for k, v in metrics.items():
-                collected.setdefault(k, []).append(v)
+                self.step(state)
             if cuda:
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()
                 events.append(ev)
-        metrics = {k: torch.stack(v).cpu() for k, v in collected.items()}
+        metrics = {k: v.cpu() for k, v in self._metric_bufs.items()}
         steady = None
         if cuda and len(events) > STEADY_AFTER:
             events[-1].synchronize()
             ms = events[STEADY_AFTER - 1].elapsed_time(events[-1])
             steady = (len(events) - STEADY_AFTER) * idx_mat.shape[1] / (ms / 1e3)
         return state, metrics, steady
+
+    def photometric_launches(self) -> int:
+        """The photometric kernel's launches so far: the wrapper's count,
+        and those the graph's replays made (`train/graph.py`)."""
+        return fused_photometric.launches + StepGraph.replayed_launches
 
     def epoch_indices(self) -> torch.Tensor:
         """The epoch's (steps, batch) index matrix: rank 0's draw, on every
@@ -306,7 +381,8 @@ class Trainer:
     def train(self) -> float:
         """Runs the epochs from `start_epoch`; returns the final linear
         probe's accuracy."""
-        self.logger.print("Beginning training.", mode="info")
+        self.logger.print(f"Beginning training. Epoch mode: {self.epoch_mode} "
+                          f"({self.epoch_mode_reason}).", mode="info")
         if self.start_epoch == 1:
             state = self.algorithm.pre_train(self.state, self)
         else:
@@ -320,7 +396,7 @@ class Trainer:
         for epoch in range(self.start_epoch, self.epochs + 1):
             state = self.algorithm.pre_epoch(state, self, epoch)
             idx_mat = self.epoch_indices()
-            launches = fused_photometric.launches
+            launches = self.photometric_launches()
             tracing = bool(profile_dir) and epoch == profile_epoch
             with (self._trace(profile_dir, epoch) if tracing else contextlib.nullcontext()):
                 t0 = time.perf_counter()
@@ -334,13 +410,14 @@ class Trainer:
                 "epoch": epoch, "steps": idx_mat.shape[0],
                 "losses": metrics["loss"].tolist(), "seconds": dt,
                 "steady_img_per_s": steady,
-                "photometric_launches": fused_photometric.launches - launches})
+                "photometric_launches": self.photometric_launches() - launches,
+                "mode": self.epoch_mode})
             self._record(self.epoch_stats[-1])
 
             ips = idx_mat.numel() / dt
             msg = (f"Epoch {epoch:4d}/{self.epochs:4d} "
                    + " ".join(f"[{k}] {v:.4f}" for k, v in means.items())
-                   + f" [img/s] {ips:,.0f}")
+                   + f" [img/s] {ips:,.0f} [mode] {self.epoch_mode}")
             if steady is not None:
                 msg += f" [steady img/s] {steady:,.0f}"
             self.logger.write(msg, mode="train")
