@@ -29,6 +29,16 @@ its plain version; then SimCLR ResNet-18 at bench.py's shape (B = 512 over
 `tools/step_profile.py --turns`): img/s, host ms a step, device ops a step,
 the busy share, the capture's seconds and the graph's pool. Every training
 phase in one process runs in graph mode and prints it (`[mode]`).
+Phase `bench` (after phase `graph`) runs the port's measurement entry
+points, each in its own process as a user runs it: `python -m
+ssv_tpu_torch.bench` at bench.py's shape (batch 512, 100 steps an epoch,
+8,192 images; its line strict, every key, graph mode, its timed epoch all
+100 replays of one graph with 200 photometric launches, a finite loss, the
+card's MFU), `python -m ssv_tpu_torch.tools.bench_augment 512` (every
+variant timed, the kernel's and the plain version's), and `python -m
+ssv_tpu_torch.tools.profile_report --capture` (the bench's timed epoch
+traced and read: device ops, duty, ms by kind, the photometric kernel
+twice a step).
 Phase 3b trains SimCLR ResNet-50 (`-m resnet50`) the same way, profiles 45
 more steps of the trained run (device ops a step, busy share), counts the
 model's FLOPs for the MFU, and runs `-t linear_eval -l` on its checkpoint.
@@ -815,6 +825,68 @@ def phase_graph(card: str) -> dict:
         print("[graph] graph mode was not faster than step mode in this call")
     out["launches"] = launches
     return out
+
+
+BENCH_TIMEOUT_S = 300   # each entry point's limit in phase `bench`
+BENCH_KEYS = {"metric", "value", "unit", "batch", "model_tflops_per_sec_per_chip", "mfu",
+              "steps", "n_train", "mode", "flops_per_image", "flops_by", "final_loss",
+              "peak_memory_gib", "capture_s", "replays", "photometric_launches", "card"}
+AUGMENT_KEYS = ("two_view_pallas_us", "two_view_xla_us", "photometric_pallas_us",
+                "photometric_xla_us", "geometric_tail_us", "full_step_us",
+                "aug_share_of_step", "aug_share_of_step_pallas", "geo_tail_share_of_step")
+
+
+def _entry_point(args: list[str], cwd: str) -> dict:
+    """`python -m <args>` from `cwd` with this checkout on the path: its last
+    line, a JSON object; fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd,
+                          env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+                          text=True, timeout=BENCH_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    print(f"[bench] python -m {' '.join(args)}: {time.perf_counter() - t0:.1f} s")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_bench(card: str) -> dict:
+    """The port's measurement entry points on the card: the bench at
+    bench.py's shape, `bench_augment` at 512, `profile_report --capture`."""
+    line = _entry_point(["ssv_tpu_torch.bench"], HERE)
+    print(f"[bench] {json.dumps(line)}")
+    steps = line.get("steps")
+    if (set(line) != BENCH_KEYS or (line["batch"], steps, line["n_train"], line["mode"])
+            != (512, 100, 8192, "graph") or line["replays"] != steps
+            or line["photometric_launches"] != LAUNCHES_PER_STEP["simclr"] * steps
+            or not math.isfinite(line["final_loss"]) or not line["value"] > 0
+            or line["capture_s"] is None or line["mfu"] is None or line["card"] != card):
+        raise AssertionError(f"bench: the line is not the bench's full-shape graph-mode line "
+                             f"on this card: {line}")
+    print(f"[bench] {line['value']:.1f} img/s, {line['flops_per_image'] / 1e9:.4f} GFLOP an "
+          f"image ({line['flops_by']}), {line['model_tflops_per_sec_per_chip']:.2f} TFLOP/s, "
+          f"MFU {line['mfu']:.4f}, peak {line['peak_memory_gib']:.3f} GiB, capture "
+          f"{line['capture_s']:.3f} s; the timed epoch {line['replays']} replays of one graph, "
+          f"{line['photometric_launches']} photometric launches | {card}")
+    aug = _entry_point(["ssv_tpu_torch.tools.bench_augment", "512"], HERE)
+    if any(not aug.get(k) or aug[k] <= 0 for k in AUGMENT_KEYS):
+        raise AssertionError(f"bench_augment: a variant missing or not timed: {aug}")
+    print("[bench] bench_augment at 512: " + ", ".join(
+        f"{k} {aug[k]:.4f}" if "share" in k else f"{k} {aug[k]:.1f}" for k in AUGMENT_KEYS)
+        + f" | {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        prof = _entry_point(["ssv_tpu_torch.tools.profile_report", "--capture"], tmp)
+    photometric = prof["ops_by_kind"].get("photometric kernel")
+    if not 0 < prof["duty"] <= 1 or photometric != LAUNCHES_PER_STEP["simclr"] * 100:
+        raise AssertionError(f"profile_report --capture: {photometric} photometric kernels "
+                             f"for 100 steps, {prof}")
+    print(f"[bench] profile_report --capture: {prof['device_ops']:,} device ops over the "
+          f"100-step epoch, wall {prof['wall_ms']:.3f} ms, busy {prof['busy_ms']:.3f} ms "
+          f"(duty {prof['duty']:.4f}); ms by kind " + ", ".join(
+              f"{k} {v:.3f}" for k, v in prof["ms_by_kind"].items()) + f" | {card}")
+    return {"launches": line["photometric_launches"], "line": line, "augment": aug,
+            "profile": {k: prof[k] for k in ("device_ops", "wall_ms", "busy_ms", "duty",
+                                              "ms_by_kind", "ops_by_kind")}}
 
 
 def phase_resnet50(card: str) -> dict:
@@ -2302,6 +2374,7 @@ def main() -> None:
     slice_out = _timed("simclr", phase_slice, card)
     paths_graph = _timed("graph", phase_graph, card)["launches"]
     paths = {"simclr": slice_out["launches"], "graph": paths_graph,
+             "bench": _timed("bench", phase_bench, card)["launches"],
              "simclr-resnet50": _timed("resnet50", phase_resnet50, card)["launches"]}
     paths.update({f"simclr-{k}": v["launches"] for k, v in
                   _timed("bottleneck family", phase_bottleneck_family, card).items()})

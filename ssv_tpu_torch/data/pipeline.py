@@ -25,13 +25,18 @@ from .multicrop import MultiCrop
 
 class DataPipeline:
     def __init__(self, data_cfg: dict, device: torch.device, allow_synthetic: bool = True,
-                 synthetic_sizes: tuple[int, int] | None = None):
+                 synthetic_sizes: tuple[int, int] | None = None,
+                 dataset: Dataset | None = None):
+        """`dataset`, where given, is put on the device in place of the one
+        `data_cfg` names (the bench's random images)."""
         cfg = dict(data_cfg)
         self.device = torch.device(device)
         self.batch_size = int(cfg["batch_size"])
-        self.dataset: Dataset = load_dataset(
-            cfg["dataset_name"], cfg.get("root", "data"),
-            allow_synthetic=allow_synthetic, synthetic_sizes=synthetic_sizes)
+        if dataset is None:
+            dataset = load_dataset(cfg["dataset_name"], cfg.get("root", "data"),
+                                   allow_synthetic=allow_synthetic,
+                                   synthetic_sizes=synthetic_sizes)
+        self.dataset: Dataset = dataset
         self.num_classes = self.dataset.num_classes
         self.transforms_cfg = cfg.get("transforms")
         self.multicrop_cfg = cfg.get("multicrop_config")

@@ -19,7 +19,8 @@ graph, graph, step: the eager step, `jit_epoch: false`, and the step
 captured as a CUDA graph and replayed, the default), each turn a fresh
 `Trainer` on bench.py's 8,192 random synthetic images at the config's
 batch, and prints each mode's means; in graph mode also the capture's
-seconds and the graph's pool:
+seconds and the graph's pool; and the device ops a step by name whose
+counts differ between the modes (`op_count_diff`):
 
     python -m ssv_tpu_torch.tools.step_profile -c configs/simclr.yaml -m resnet18 -a simclr --turns
 
@@ -160,8 +161,10 @@ def profile_trainer(trainer, warmup: int = 10, steps: int = 30, profiled: int = 
     batch_size = trainer.pipeline.batch_size
     del state
     by_name: dict[str, float] = {}
+    count: dict[str, int] = {}
     for e in ops:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+        count[e.name] = count.get(e.name, 0) + 1
     by_kind: dict[str, float] = {}
     for name, us in by_name.items():
         by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + us / profiled / 1e3
@@ -175,6 +178,7 @@ def profile_trainer(trainer, warmup: int = 10, steps: int = 30, profiled: int = 
         "ms_per_step_by_kind": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
         "top_us_per_step": {n: us / profiled for n, us in
                             sorted(by_name.items(), key=lambda kv: -kv[1])[:top]},
+        "ops_per_step_by_name": {n: c / profiled for n, c in count.items()},
         "capture_s": trainer.graph.capture_s if trainer.graph else None,
         "pool_bytes": trainer.graph.pool_bytes if trainer.graph else None,
         **coll, "card": card}
@@ -222,16 +226,32 @@ def profile_modes(config: str, arch: str, algo: str) -> dict:
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
-    means = {}
+    means, by_name = {}, {}
     for mode in TURNS[:2]:
         mine = [r for r in rows if r["mode"] == mode]
         means[mode] = {k: statistics.mean(r[k] for r in mine) for k in MEANED}
+        names = {n for r in mine for n in r["ops_per_step_by_name"]}
+        by_name[mode] = {n: statistics.mean(r["ops_per_step_by_name"].get(n, 0.0) for r in mine)
+                         for n in names}
         m = means[mode]
         print(f"[step_profile] {algo} {arch} {mode} mode, mean of {len(mine)} turns: "
               f"{m['img_per_s']:.1f} img/s, {m['step_ms']:.3f} host ms a step, "
               f"{m['device_ops_per_step']:.1f} device ops, busy share "
               f"{m['device_busy_share']:.3f} | {card}", flush=True)
-    return {"algo": algo, "arch": arch, "turns": rows, "means": means, "card": card}
+    diff = op_count_diff(by_name["step"], by_name["graph"])
+    print(f"[step_profile] {algo} {arch} device ops a step by name, graph minus step: "
+          + (", ".join(f"{d:+.1f} {n[:100]}" for n, d in diff.items()) or "none differ"),
+          flush=True)
+    return {"algo": algo, "arch": arch, "turns": rows, "means": means,
+            "op_count_diff": diff, "card": card}
+
+
+def op_count_diff(step: dict, graph: dict) -> dict:
+    """{op name: graph's count a step minus step mode's} for every name whose
+    counts differ, the largest differences first."""
+    diff = {n: graph.get(n, 0.0) - step.get(n, 0.0) for n in set(step) | set(graph)}
+    return dict(sorted(((n, d) for n, d in diff.items() if d),
+                       key=lambda kv: (-abs(kv[1]), kv[0])))
 
 
 def main(argv=None):

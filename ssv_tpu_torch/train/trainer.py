@@ -68,7 +68,7 @@ class Trainer:
                  allow_synthetic: bool = True,
                  synthetic_sizes: tuple[int, int] | None = None,
                  make_dirs: bool = True, seed: int = DEFAULT_SEED,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, dataset=None):
         """The JAX Trainer's arguments, with its meanings: `overrides` is
         merged into the loaded config (`core.config._merge`);
         `allow_synthetic=False` raises where the config's dataset is not on
@@ -78,7 +78,8 @@ class Trainer:
         generator and rank r's device generator (`seed + r`). The JAX
         Trainer's `use_mesh` has no counterpart: the ranks come from
         torchrun (`parallel/`). `device` is the port's own: CUDA unless the
-        CPU is asked for."""
+        CPU is asked for; so is `dataset`, a `data.datasets.Dataset` trained
+        on in place of the config's (`ssv_tpu_torch.bench`'s images)."""
         self.device = default_device(device)
         self.args = dict(args)
         self.make_dirs = make_dirs
@@ -101,7 +102,7 @@ class Trainer:
                         output_dir=self.output_dir if make_dirs else None)
 
         self.pipeline = DataPipeline(cfg["data"], self.device, allow_synthetic=allow_synthetic,
-                                     synthetic_sizes=synthetic_sizes)
+                                     synthetic_sizes=synthetic_sizes, dataset=dataset)
         self.data_info = DataInfo(
             num_classes=self.pipeline.num_classes,
             n_train=self.pipeline.n_train,

@@ -167,7 +167,9 @@ def test_unported_algorithm_and_arch_raise():
 
 
 def test_port_imports_no_jax():
-    """Every module of the package imports without JAX or the JAX package."""
+    """Every module of the package imports without JAX, the JAX package or
+    the JAX system's root modules (`__graft_entry__`, `bench`), and none
+    names them in an import."""
     modules = sorted(
         "ssv_tpu_torch." + os.path.relpath(os.path.join(d, f), PKG)[:-3].replace(os.sep, ".")
         for d, _, files in os.walk(PKG) for f in files if f.endswith(".py"))
@@ -175,7 +177,8 @@ def test_port_imports_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ssv_tpu'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ssv_tpu', '__graft_entry__', "
+            "'bench'))\n"
             "assert not bad, bad\n"
             "print(len(" + repr(modules) + "))\n")
     proc = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=REPO,
@@ -187,8 +190,8 @@ def test_port_imports_no_jax():
         if not os.path.isfile(path):
             path = os.path.join(REPO, *m.split("."), "__init__.py")
         src = open(path).read()
-        assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax|orbax|ssv_tpu)\b",
-                             src, re.M), m
+        assert not re.search(r"^\s*(import|from)\s+(jax|flax|optax|orbax|ssv_tpu|"
+                             r"__graft_entry__|bench)\b", src, re.M), m
 
 
 @pytest.mark.parametrize("algo,width", [("pirl", 128), ("deep_cluster", 512)])

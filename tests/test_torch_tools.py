@@ -77,6 +77,19 @@ def test_step_profile_counts_device_ops_not_annotations(monkeypatch):
         step_profile.profile_steps("configs/dino.yaml", "vit", "dino")
 
 
+def test_step_profile_op_count_diff():
+    """The per-name difference between the modes: graph minus step, only
+    the names that differ (one mode's alone counts as 0 in the other), the
+    largest first."""
+    from ssv_tpu_torch.tools.step_profile import op_count_diff
+
+    step = {"gemm": 10.0, "Memset (Device)": 45.5, "copy": 2.0}
+    graph = {"gemm": 10.0, "copy": 3.0, "fill": 0.5}
+    assert op_count_diff(step, graph) == {"Memset (Device)": -45.5, "copy": 1.0, "fill": 0.5}
+    assert list(op_count_diff(step, graph)) == ["Memset (Device)", "copy", "fill"]
+    assert op_count_diff(step, step) == {}
+
+
 def test_step_profile_kinds():
     from ssv_tpu_torch.tools.step_profile import kind_of
 
