@@ -44,7 +44,7 @@ more steps of the trained run (device ops a step, busy share), counts the
 model's FLOPs for the MFU, and runs `-t linear_eval -l` on its checkpoint.
 Phase 3c trains SimCLR for 10 steps each on ResNet-101, ResNet-152,
 ResNeXt-50 32x4d, ResNeXt-101 32x8d, Wide ResNet-50-2, Wide ResNet-101-2 and
-`tiny` through the Trainer.
+`tiny` through the Trainer, on FAMILY_SIZES synthetic images.
 Phase 3d holds every transform op of slice C (Gaussian blur, random crop,
 resize to 24 and 40, cutout, RandAugment and each of its 14 branches) on a
 batch of 512 train images on the card against the CPU from the same draws,
@@ -93,14 +93,16 @@ stop, and cover every train index with values in [0, 10); it prints the
 seconds of `map_train`, K-means and the Hungarian step of each epoch.
 Phase 6 also holds a float32 PIRL step (JAX-free fixed draws) and a
 DeepCluster step on the card against the CPU.
-Phase 13 (`ddp`) trains across ranks: (a) SimCLR ResNet-18 as phase 3,
-through `torchrun --standalone --nproc_per_node 1 -m ssv_tpu_torch.main`
-(NCCL), its per-step losses against phase 3's, its img/s beside phase 3's,
+Phase 13 (`ddp`) trains across ranks: (a) SimCLR ResNet-18 as phase 3
+(its probe cut to one epoch), through `torchrun --standalone
+--nproc_per_node 1 -m ssv_tpu_torch.main` (NCCL), its per-step losses
+against phase 3's, its img/s beside phase 3's,
 2 launches a step; (b) two ranks sharing the card over gloo (NCCL refuses
 two ranks on one device), spawned: every collective of the slice on CUDA
 tensors, two float32 steps of full-width SimCLR ResNet-18 on given views
-against the one-process step (params 1e-4, BN statistics 1e-5), and 10
-bf16 steps of the Trainer at global batch 512 with sync BN and then with
+against the one-process step (params 1e-4, BN statistics 1e-5), and
+DDP_STEPS bf16 steps of the Trainer at global batch 512 (on DDP_SIZES
+synthetic images) with sync BN and then with
 `per_device_bn` (finite losses, the ranks' states bit for bit the same, 2
 launches a step at B = 256 on each rank); then the photometric wrapper on a
 tensor of a device that is not the current one, where a second device
@@ -114,7 +116,11 @@ entry point: SimCLR ResNet-18 from configs/simclr.yaml on synth100 at full
 size (50,000 / 10,000) for 2 epochs with a KNN each and the probe (the JSON
 line strict, 2 curve points, the probe's accuracy in (0, 1]); then a run on
 `tiny` whose parameters a `pre_epoch` hook fills with NaN at epoch 1: the row
-says `nan_at` 1, `linear` null, and the probe never ran. Phase 2 also times
+says `nan_at` 1, `linear` null, and the probe never ran; then a short
+shapes100 row (SwAV ResNet-18 from configs/swav.yaml, SHAPES_EPOCHS epochs
+on SHAPES_SIZES), which `python -m ssv_tpu_torch.tools.quality_parity
+--join ... --keys-only` reads back from the run's log: the joined row's keys
+and curve whole, one graph captured in the row (its quality is not judged). Phase 2 also times
 the kernel at the sweep's batches: 250 (SeLA), 32 (DINO's row by its name)
 and 8 (the batch that row runs).
 Phase `sweep` runs the 12 rows of `python -m ssv_tpu_torch.tools.sweep` (the
@@ -125,7 +131,7 @@ model group) on ranks sharing the card over gloo: (a) SwAV ResNet-18 at
 configs/swav.yaml's widths at data 1 x model 2 (1,500 prototype rows a
 rank), two float32 steps on given views against the one-process step
 (the loss 1e-5 relative, the gathered table and the tower: params 1e-4, BN
-statistics 1e-5), then 20 bf16 steps at batch 512 (finite losses, the tower
+statistics 1e-5), then TP_STEPS bf16 steps at batch 512 (finite losses, the tower
 and the bank bit for bit the same on both ranks, 2 launches a step a rank;
 the collectives, MB and host ms a step); (b) the dry run's DPxTP phase at
 4 ranks (2 x 2) on CUDA tensors; (c) the native IO library built by g++,
@@ -133,6 +139,8 @@ its CIFAR binary reader against its NumPy version bit for bit on a
 50,000 + 10,000-row binary directory written from a seed, and two
 `load_dataset` calls, the first writing the `.raw` cache and the second
 reading it, both timed.
+Every CLI run but phase 3's, and the quality runner's, probes for
+PROBE_EPOCHS epochs (phase 3 keeps the shipped 100).
 Every training phase checks the photometric launches per train step (two,
 a graph replay counted as the launches its capture recorded;
 one for SeLA's single augmented view; DeepCluster builds and pays for the
@@ -530,12 +538,21 @@ def _check_losses(name: str, stats: list[dict]) -> list[float]:
     return losses
 
 
-def _config(tmp: str, name: str, **overrides) -> str:
-    """configs/<name>.yaml with top-level `overrides`, written to `tmp`."""
+# the final linear probe's epochs on every path but phase 3's (the main
+# path's keeps the shipped 100): the probe's depth, about 6 s a run at 100
+PROBE_EPOCHS = 10
+
+
+def _config(tmp: str, name: str, probe_epochs: int | None = PROBE_EPOCHS,
+            **overrides) -> str:
+    """configs/<name>.yaml with its probe cut to `probe_epochs` (None: as
+    shipped) and top-level `overrides`, written to `tmp`."""
     import yaml
 
     with open(os.path.join(HERE, "configs", f"{name}.yaml")) as f:
         cfg = yaml.safe_load(f)
+    if probe_epochs is not None:
+        cfg["linear_eval"] = {**cfg["linear_eval"], "epochs": probe_epochs}
     cfg.update(overrides)
     path = os.path.join(tmp, f"{name}.yaml")
     with open(path, "w") as f:
@@ -578,7 +595,7 @@ def phase_slice(card: str) -> dict:
     from ssv_tpu_torch.train.trainer import STEADY_AFTER
 
     with tempfile.TemporaryDirectory() as tmp:
-        cfg_path = _config(tmp, "simclr", epochs=1, eval_every=1)
+        cfg_path = _config(tmp, "simclr", probe_epochs=None, epochs=1, eval_every=1)
         held = _held_before_run("simclr")
         _reset_launches()
         trainer = cli.main(["-c", cfg_path, "-m", "resnet18", "-a", "simclr",
@@ -942,6 +959,7 @@ def phase_resnet50(card: str) -> dict:
 # the rest of the Bottleneck family and the test backbone, 10 SimCLR steps each
 FAMILY_C = ("resnet101", "resnet152", "resnext50", "resnext101", "wide_resnet50",
             "wide_resnet101", "tiny")
+FAMILY_SIZES = (10 * 512, 1024)   # synthetic train and test images: 10 steps' worth
 
 
 def phase_bottleneck_family(card: str) -> dict:
@@ -956,7 +974,8 @@ def phase_bottleneck_family(card: str) -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             trainer = Trainer({"config": os.path.join(HERE, "configs", "simclr.yaml"),
                                "algo": "simclr", "arch": arch, "task": "train",
-                               "output": os.path.join(tmp, "run")})
+                               "output": os.path.join(tmp, "run")},
+                              synthetic_sizes=FAMILY_SIZES)
             idx_mat = trainer.pipeline.epoch_indices(trainer.generator)[:10]
             _reset_launches()
             state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
@@ -1660,9 +1679,9 @@ def _strict_rows(text: str) -> list[dict]:
             for line in text.splitlines() if line.startswith("{")]
 
 
-def _quality_main(argv: list[str]) -> tuple[int, dict]:
+def _quality_main(argv: list[str]) -> tuple[int, dict, str]:
     """`python -m ssv_tpu_torch.tools.quality_run <argv>` in this process:
-    its exit code and its one row, parsed strictly."""
+    its exit code, its one row, parsed strictly, and its output."""
     import contextlib
 
     from ssv_tpu_torch.tools import quality_run
@@ -1670,13 +1689,16 @@ def _quality_main(argv: list[str]) -> tuple[int, dict]:
     tee = _Tee()
     with contextlib.redirect_stdout(tee):
         rc = quality_run.main(argv)
-    rows = _strict_rows("".join(tee.lines))
+    text = "".join(tee.lines)
+    rows = _strict_rows(text)
     if len(rows) != 1:
         raise AssertionError(f"quality_run printed {len(rows)} JSON lines: {rows}")
-    return rc, rows[0]
+    return rc, rows[0], text
 
 
 QUALITY_EPOCHS = 2
+SHAPES_EPOCHS = 2
+SHAPES_SIZES = (8192, 2048)
 
 
 def phase_quality(card: str) -> dict:
@@ -1693,9 +1715,10 @@ def phase_quality(card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         held = _held_before_run("quality simclr")
         _reset_launches()
-        rc, row = _quality_main(
+        rc, row, _ = _quality_main(
             ["--algos", "simclr", "--epochs", str(QUALITY_EPOCHS), "--eval-every", "1",
-             "--dataset", "synth100", "--tag", "smoke", "--out", os.path.join(tmp, "smoke.md")])
+             "--dataset", "synth100", "--set", f"linear_eval.epochs={PROBE_EPOCHS}",
+             "--tag", "smoke", "--out", os.path.join(tmp, "smoke.md")])
         launches = _launches()
         peak = torch.cuda.max_memory_allocated() - held
         with open(os.path.join(tmp, "smoke.md")) as f:
@@ -1737,7 +1760,7 @@ def phase_quality(card: str) -> dict:
         Trainer.perform_linear_eval = counted
         try:
             with _Hooks(pre_epoch=nan_at_epoch_1):
-                rc, row = _quality_main(
+                rc, row, _ = _quality_main(
                     ["--algos", "simclr", "--arch", "tiny", "--epochs", "2", "--eval-every",
                      "1", "--dataset", "synth100", "--n-train", "5120", "--n-test", "1024",
                      "--tag", "nan", "--out", os.path.join(tmp, "nan.md")])
@@ -1752,7 +1775,55 @@ def phase_quality(card: str) -> dict:
         raise AssertionError(f"quality NaN case: exit {rc}, row {row}, {len(probes)} probes")
     _check_launches("simclr", nan_launches, 5120 // 512)
     out["nan"] = {"launches": nan_launches, "row": row}
+    out["shapes100"] = _quality_shapes100(card)
     return out
+
+
+def _quality_shapes100(card: str) -> dict:
+    """A short shapes100 row through the runner's entry point (SwAV
+    ResNet-18, configs/swav.yaml, SHAPES_EPOCHS epochs on SHAPES_SIZES, a
+    KNN each), read back from its log by `python -m
+    ssv_tpu_torch.tools.quality_parity --join swav <log> --keys-only`: the
+    joined row's keys and curve whole, one graph captured over the row, 2
+    photometric launches a step. Its quality is not judged."""
+    import contextlib
+
+    from ssv_tpu_torch.tools import quality_parity
+
+    n_train, n_test = SHAPES_SIZES
+    with tempfile.TemporaryDirectory() as tmp:
+        held = _held_before_run("quality shapes100")
+        _reset_launches()
+        rc, row, text = _quality_main(
+            ["--algos", "swav", "--epochs", str(SHAPES_EPOCHS), "--eval-every", "1",
+             "--dataset", "shapes100", "--n-train", str(n_train), "--n-test", str(n_test),
+             "--set", f"linear_eval.epochs={PROBE_EPOCHS}", "--tag", "shapes",
+             "--out", os.path.join(tmp, "shapes.md")])
+        launches = _launches()
+        peak = torch.cuda.max_memory_allocated() - held
+        log = os.path.join(tmp, "swav.log")
+        with open(log, "w") as f:
+            f.write(text)
+        tee = _Tee()
+        with contextlib.redirect_stdout(tee):
+            parity_rc = quality_parity.main(["--join", "swav", log, "--eval-every", "1",
+                                             "--keys-only"])
+    joined = _strict_rows("".join(tee.lines))[0]
+    steps = SHAPES_EPOCHS * (n_train // 512)
+    captures = int(joined["diagnostics"]["rows"][-1][1])
+    print(f"[quality] swav resnet18 shapes100 ({row.get('resolved_dataset')}): exit {rc}, "
+          f"KNN curve {joined['knn_curve']}, linear {joined['linear']}, best epoch "
+          f"{joined['img_per_sec']} img/s (host clock), {joined['wall_s']} s, {captures} "
+          f"graph captured; the parity tool joined it whole (exit {parity_rc}); {launches} "
+          f"photometric launches for {steps} steps; peak memory {_gib(peak)} above the "
+          f"{_gib(held)} held before | {card}")
+    if rc != 0 or parity_rc != 0 or "error" in row:
+        raise AssertionError(f"quality shapes100: runner exit {rc}, tool exit {parity_rc}")
+    if joined["n_train"] != n_train or captures != 1:
+        raise AssertionError(f"quality shapes100: {joined['n_train']} images, {captures} "
+                             "captures (1 expected)")
+    _check_launches("swav", launches, steps)
+    return {"launches": launches, "steps": steps, "row": joined, "peak_bytes": peak}
 
 
 # the sweep's rows here: 2 epochs on half the tool's train split (5,120 /
@@ -1809,7 +1880,8 @@ def phase_sweep(card: str) -> dict:
 # data-parallel training across ranks
 # ----------------------------------------------------------------------
 DDP_TIMEOUT_S = 300     # each launch's limit, and each collective's wait
-DDP_STEPS = 10          # bf16 steps of part (b), each mode
+DDP_STEPS = 7           # bf16 steps of part (b), each mode (its img/s from step 6)
+DDP_SIZES = (DDP_STEPS * 512, 1024)   # part (b)'s synthetic train and test images
 DDP_F32_BATCH = 128     # global batch of part (b)'s float32 steps
 
 
@@ -1888,7 +1960,8 @@ def _ddp_trainer_steps(cfg_path: str, out_dir: str, device) -> dict:
     from ssv_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer({"config": cfg_path, "algo": "simclr", "arch": "resnet18",
-                       "task": "train", "output": out_dir}, device=device)
+                       "task": "train", "output": out_dir}, device=device,
+                      synthetic_sizes=DDP_SIZES)
     idx_mat = trainer.epoch_indices()[:DDP_STEPS]
     _reset_launches()
     state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
@@ -1950,8 +2023,8 @@ def phase_ddp(card: str, slice_out: dict) -> dict:
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        # (a)
-        cfg_path = _config(tmp, "simclr", epochs=1, eval_every=1)
+        # (a): the probe cut to one epoch (this part checks the steps)
+        cfg_path = _config(tmp, "simclr", probe_epochs=1, epochs=1, eval_every=1)
         run_dir = os.path.join(tmp, "torchrun")
         env = dict(os.environ, PYTHONPATH=HERE)
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -2037,7 +2110,7 @@ def phase_ddp(card: str, slice_out: dict) -> dict:
 # ----------------------------------------------------------------------
 # the model axis: SwAV's prototype table sharded over a model group
 # ----------------------------------------------------------------------
-TP_STEPS = 20           # bf16 steps of part (a)
+TP_STEPS = 8            # bf16 steps of part (a) (the second half timed)
 TP_TIMEOUT_S = 400      # each spawn's limit, and each collective's wait
 
 
@@ -2391,7 +2464,8 @@ def main() -> None:
         paths[name] = _timed(name, phase, card)["launches"]
     quality = _timed("quality", phase_quality, card)
     paths.update({"quality": quality["main"]["launches"],
-                  "quality-nan": quality["nan"]["launches"]})
+                  "quality-nan": quality["nan"]["launches"],
+                  "quality-shapes100": quality["shapes100"]["launches"]})
     paths["sweep"] = _timed("sweep", phase_sweep, card)["launches"]
     ddp = _timed("ddp", phase_ddp, card, slice_out)
     paths["ddp-torchrun"] = ddp["a"]["launches"]

@@ -12,7 +12,10 @@ from there. For BYOL, SimSiam and DINO (or any algorithm with
 `--probe-encoder`) the KNN of the raw backbone features is also recorded
 where the algorithm's `embed_backbone` returns features; DINO's rows carry
 its teacher-output probe, SeLA's and DeepCluster's the entropy of their
-pseudo-labels each epoch.
+pseudo-labels each epoch. Each eval line also prints the graphs captured in
+the run so far (`captures`), the mean seconds an epoch spent outside its
+steps since the last eval (`outside_s`: pre/post_epoch and the draw) and,
+on the card, the allocated and peak GiB.
 
 A non-finite loss ends the run: the KNN of that state is recorded with
 `nan_at`, and the linear probe is not run (`linear` is null), so every JSON
@@ -109,6 +112,7 @@ def run_one(algo: str, epochs: int, dataset: str, eval_every: int,
             run_root: str = os.path.join("outputs", "quality"), seed: int = 420) -> dict:
     """One algorithm's run in `<run_root>/<algo>/`; returns its row."""
     from ..evals.knn import compute_neighbor_accuracy
+    from ..train.graph import StepGraph
     from ..train.trainer import Trainer
 
     cfg = quality_config(algo, epochs, dataset, eval_every, batch, overrides)
@@ -141,8 +145,14 @@ def run_one(algo: str, epochs: int, dataset: str, eval_every: int,
     knn_curve, ips_hist, ent_curve, backbone_curve, teacher_curve = [], [], [], [], []
     nan_at = None
     probe = (probe_encoder or algo in PROBE_DEFAULT) and _has_backbone(tr)
+    cuda = tr.device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(tr.device)
+    captures = StepGraph.captures
+    outside = []  # each epoch's seconds outside its steps (pre/post_epoch, the draw)
 
     for e in range(start_epoch, epochs + 1):
+        t_epoch = time.time()
         state = tr.algorithm.pre_epoch(state, tr, e)
         labels = pseudo_labels(state)
         if labels is not None:
@@ -150,9 +160,11 @@ def run_one(algo: str, epochs: int, dataset: str, eval_every: int,
         idx_mat = tr.epoch_indices()
         te = time.time()
         state, metrics, _ = tr._run_epoch(state, idx_mat)
+        t_steps = time.time() - te
         state = tr.algorithm.post_epoch(state, e)
         loss = float(metrics["loss"].mean())
         ips_hist.append(idx_mat.numel() / (time.time() - te))
+        outside.append(time.time() - t_epoch - t_steps)
         if not math.isfinite(loss):
             # terminal: every later epoch trains from non-finite weights.
             # Record the KNN of this state and stop; no probe (below).
@@ -187,6 +199,12 @@ def run_one(algo: str, epochs: int, dataset: str, eval_every: int,
                      round(ts["raw_std"], 4), round(ts["ent_frac"], 4)))
                 msg += (f" t_mi={ts['mi']:.5f} t_pstd={ts['prob_std']:.2e}"
                         f" t_rawstd={ts['raw_std']:.4f} t_entfrac={ts['ent_frac']:.4f}")
+            msg += (f" captures={StepGraph.captures - captures}"
+                    f" outside_s={float(np.mean(outside)):.3f}")
+            outside = []
+            if cuda:
+                msg += (f" alloc_gib={torch.cuda.memory_allocated(tr.device) / 2**30:.3f}"
+                        f" peak_gib={torch.cuda.max_memory_allocated(tr.device) / 2**30:.3f}")
             print(msg, flush=True)
     tr.state = state
     linear = None if nan_at is not None else round(float(tr.perform_linear_eval()), 4)

@@ -68,6 +68,7 @@ class StepGraph:
     """One trainer's captured train step."""
 
     replayed_launches = 0   # photometric launches of replays after each graph's first
+    captures = 0            # graphs captured in this process
 
     def __init__(self):
         self.graph: torch.cuda.CUDAGraph | None = None
@@ -117,6 +118,7 @@ class StepGraph:
         state.step, state.scheduler.taken = step, taken
         self.launches = fused_photometric.launches - launches
         self.graph = graph
+        StepGraph.captures += 1
 
     def _replay(self, state) -> None:
         self.graph.replay()
