@@ -123,6 +123,14 @@ on SHAPES_SIZES), which `python -m ssv_tpu_torch.tools.quality_parity
 and curve whole, one graph captured in the row (its quality is not judged). Phase 2 also times
 the kernel at the sweep's batches: 250 (SeLA), 32 (DINO's row by its name)
 and 8 (the batch that row runs).
+Phase `cifar` stages real-layout CIFAR-10 without JAX: a pickle-layout
+tarball of CIFAR_SIZES images written from a numpy seed (made here, not
+downloaded), staged by `python -m ssv_tpu_torch.tools.fetch_cifar --from` in
+its own process (which writes the `.raw` cache); the pickle directory is
+then moved away, and SimCLR ResNet-18 from configs/simclr.yaml trains one
+epoch on the staged root through the CLI, so its start reads the cache:
+not the synthetic fallback, the images and labels the tarball holds, the
+cache not rewritten, 2 photometric launches a step.
 Phase `sweep` runs the 12 rows of `python -m ssv_tpu_torch.tools.sweep` (the
 synthetic set cut to SWEEP_SIZES, SWEEP_EPOCHS epochs each) and prints each
 row's img/s beside its committed floor; the floors are no gate here.
@@ -1826,6 +1834,110 @@ def _quality_shapes100(card: str) -> dict:
     return {"launches": launches, "steps": steps, "row": joined, "peak_bytes": peak}
 
 
+CIFAR_SIZES = (5 * 1024, 1024)   # the staged tarball's train (5 batches) and test images
+CIFAR_TIMEOUT_S = 120            # the staging tool's limit
+
+
+def _cifar_tarball(tmp: str) -> tuple[str, dict]:
+    """A cifar-10-python.tar.gz in the published pickle layout from a numpy
+    seed, and its arrays as the loader gives them (NHWC uint8, int32)."""
+    import pickle
+    import tarfile
+
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    src = os.path.join(tmp, "src", "cifar-10-batches-py")
+    os.makedirs(src)
+    n_train, n_test = CIFAR_SIZES
+    want = {}
+    for split, names, n in (("train", [f"data_batch_{i}" for i in range(1, 6)], n_train // 5),
+                            ("test", ["test_batch"], n_test)):
+        xs, ys = [], []
+        for name in names:
+            data = rs.randint(0, 256, size=(n, 3072), dtype=np.uint8)
+            labels = rs.randint(0, 10, n).tolist()
+            with open(os.path.join(src, name), "wb") as f:
+                pickle.dump({"data": data, "labels": labels}, f)
+            xs.append(data.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
+            ys.append(np.asarray(labels, np.int32))
+        want[split] = (np.concatenate(xs), np.concatenate(ys))
+    tar = os.path.join(tmp, "cifar-10-python.tar.gz")
+    with tarfile.open(tar, "w:gz") as tf:
+        tf.add(src, arcname="cifar-10-batches-py")
+    return tar, want
+
+
+def phase_cifar(card: str) -> dict:
+    """Real-layout CIFAR-10 staged by the port's tool in its own process,
+    then one SimCLR ResNet-18 epoch on it through the CLI from the cache."""
+    import numpy as np
+    import yaml
+
+    from ssv_tpu_torch import main as cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tar, want = _cifar_tarball(tmp)
+        root = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ssv_tpu_torch.tools.fetch_cifar", "--dataset", "cifar10",
+             "--root", root, "--from", tar], cwd=tmp, env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True, text=True, timeout=CIFAR_TIMEOUT_S)
+        stage_s = time.perf_counter() - t0
+        if proc.returncode != 0 or "staged cifar10" not in proc.stdout:
+            raise AssertionError(f"cifar: fetch_cifar exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        caches = [os.path.join(root, f"cifar10_{split}.raw") for split in ("train", "test")]
+        if not all(map(os.path.isfile, caches)):
+            raise AssertionError(f"cifar: the tool wrote no .raw cache under {root}")
+        stamps = [os.stat(c).st_mtime_ns for c in caches]
+        # with the pickles gone, only the cache can give the staged images
+        os.rename(os.path.join(root, "cifar-10-batches-py"), os.path.join(tmp, "moved"))
+
+        cfg_path = _config(tmp, "simclr", epochs=1, eval_every=1)
+        with open(cfg_path) as f:
+            cfg = yaml.safe_load(f)
+        cfg["data"]["root"] = root
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(cfg, f, sort_keys=False)
+        held = _held_before_run("cifar")
+        _reset_launches()
+        t0 = time.perf_counter()
+        trainer = cli.main(["-c", cfg_path, "-m", "resnet18", "-a", "simclr", "-t", "train",
+                            "-o", os.path.join(tmp, "run")])
+        launches = _launches()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        rewritten = [os.stat(c).st_mtime_ns for c in caches] != stamps
+    peak = torch.cuda.max_memory_allocated() - held
+    ds = trainer.pipeline.dataset
+    if ds.synthetic or ds.name != "cifar10" or rewritten:
+        raise AssertionError(f"cifar: trained on {ds.name}, synthetic {ds.synthetic}, the "
+                             f"cache rewritten {rewritten}")
+    for split in ("train", "test"):
+        got = getattr(ds, split)
+        if not (np.array_equal(got.images, want[split][0])
+                and np.array_equal(got.labels, want[split][1])):
+            raise AssertionError(f"cifar: the {split} split is not the tarball's")
+    stats = trainer.epoch_stats[-1]
+    steps = stats["steps"]
+    _check_launches("simclr", launches, steps)
+    losses = _check_losses("cifar", [stats])
+    print(f"[cifar] fetch_cifar --from a {CIFAR_SIZES[0]:,} + {CIFAR_SIZES[1]:,}-image "
+          f"tarball in its own process: {stage_s:.1f} s, .raw cache written; the pickles "
+          f"moved away, the run's start read the cache (not rewritten): the tarball's "
+          f"images and labels, not the synthetic fallback")
+    print(f"[cifar] simclr resnet18 batch {trainer.pipeline.batch_size} on the staged "
+          f"cifar10: {steps} steps in {train_s:.1f} s with the probe, loss first "
+          f"{losses[0]:.4f} last {losses[-1]:.4f}, KNN {trainer.best_metric:.4f}, "
+          f"{launches} photometric launches, peak memory {_gib(peak)} above the "
+          f"{_gib(held)} held before | {card}")
+    probe = _check_probe("cifar", trainer, card)
+    return {"launches": launches, "steps": steps, "stage_s": stage_s, "train_s": train_s,
+            "linear_eval": probe}
+
+
 # the sweep's rows here: 2 epochs on half the tool's train split (5,120 /
 # 1,024), since its DINO row alone takes about 64 s an epoch at 10,240
 # (1,280 host-bound steps of batch 8)
@@ -2466,6 +2578,7 @@ def main() -> None:
     paths.update({"quality": quality["main"]["launches"],
                   "quality-nan": quality["nan"]["launches"],
                   "quality-shapes100": quality["shapes100"]["launches"]})
+    paths["cifar"] = _timed("cifar", phase_cifar, card)["launches"]
     paths["sweep"] = _timed("sweep", phase_sweep, card)["launches"]
     ddp = _timed("ddp", phase_ddp, card, slice_out)
     paths["ddp-torchrun"] = ddp["a"]["launches"]

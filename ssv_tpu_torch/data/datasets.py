@@ -107,7 +107,7 @@ def _find_pickle_dir(root: str, name: str):
             t = os.path.join(base, tarname)
             if os.path.isfile(t):
                 with tarfile.open(t) as tf:
-                    tf.extractall(base)
+                    tf.extractall(base, filter="data")
                 d = os.path.join(base, candidates[0])
                 if os.path.isdir(d):
                     return d

@@ -12,8 +12,10 @@ from there. For BYOL, SimSiam and DINO (or any algorithm with
 `--probe-encoder`) the KNN of the raw backbone features is also recorded
 where the algorithm's `embed_backbone` returns features; DINO's rows carry
 its teacher-output probe, SeLA's and DeepCluster's the entropy of their
-pseudo-labels each epoch. Each eval line also prints the graphs captured in
-the run so far (`captures`), the mean seconds an epoch spent outside its
+pseudo-labels each epoch. The line after the dataset's, `[<algo>] row:
+{"arch": ..., "overrides": ...}`, names the run's backbone and `--set`
+overrides. Each eval line also prints the graphs captured in the run so
+far (`captures`), the mean seconds an epoch spent outside its
 steps since the last eval (`outside_s`: pre/post_epoch and the draw) and,
 on the card, the allocated and peak GiB.
 
@@ -131,6 +133,9 @@ def run_one(algo: str, epochs: int, dataset: str, eval_every: int,
                           and ds.name not in ("synth100", "shapes100") else "")
     resolved += f" ({len(ds.train.images):,} train / {len(ds.test.images):,} test)"
     print(f"[{algo}] dataset resolved: {resolved}", flush=True)
+    # the backbone and overrides that, with the algorithm, name the row
+    print(f"[{algo}] row: " + json.dumps({"arch": args["arch"], "overrides": overrides}),
+          flush=True)
     start_epoch = 1
     if resume:
         try:

@@ -28,8 +28,8 @@ from ssv_tpu_torch.train.optim import OptaxAdam, _chain_pre_hook, get_optimizer
 from ssv_tpu_torch.train.registry import build_algorithm
 from ssv_tpu_torch.train.trainer import Trainer
 from ssv_tpu_torch.utils import schedules as TS
-from torch_helpers import (assert_state_matches, load_jax_state, small_resnet18,
-                           stage_fake_cifar, t)
+from torch_helpers import (_jax_state_dicts, assert_state_matches, load_jax_state,
+                           small_resnet18, stage_fake_cifar, t)
 
 torch.set_num_threads(2)
 
@@ -193,20 +193,33 @@ def _batch(step):
 # arch, config switches; one step an epoch, so the second step is epoch 2's
 # (its teacher temperature, decay and, under freeze_last_layer: 1, fc_out
 # unfrozen)
+# The last is the shapes100 ResNet-18 row's recipe: both switches at once,
+# with configs/dino.yaml's optimizer (AdamW, lr 1e-4, epsilon 1e-6) as the
+# row runs it. Its updates are about lr in size, so the test holds each
+# parameter's change against JAX's relative to that change, not only the
+# parameters' values.
+with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "configs", "dino.yaml")) as _f:
+    SHIPPED_OPTIMIZER = yaml.safe_load(_f)["optimizer"]
 STEPS = [("vit", {}), ("resnet18", {}), ("vit", {"teacher_update": "step"}),
-         ("vit", {"freeze_last_layer": 1}), ("vit", {"center_init": "zeros"})]
+         ("vit", {"freeze_last_layer": 1}), ("vit", {"center_init": "zeros"}),
+         ("resnet18", {"teacher_update": "step", "center_init": "zeros",
+                       "optimizer": SHIPPED_OPTIMIZER})]
 
 
 @pytest.mark.parametrize("arch,extra", STEPS,
                          ids=["vit-fused", "resnet-unfused", "teacher-step", "freeze-1",
-                              "center-zeros"])
+                              "center-zeros", "resnet-step-zeros"])
 def test_two_train_steps_and_post_epoch(arch, extra, monkeypatch):
-    """Loss within 1e-5 relative at each step; after two steps and the
-    epoch's teacher EMA, the student's and teacher's params within 1e-5 for
-    the ViT and 1e-4 for the ResNet (as the other ResNet step tests hold
-    them: Adam divides by sqrt(nu) + 1e-6, so a conv-weight gradient that
-    cancels to near 1e-6 carries float32 rounding into its step), BN
-    statistics and the center within 1e-5. The ViT fuses its views
+    """Loss within 1e-5 relative at each step; after each step the teacher
+    is the per-step EMA at JAX's lambda of the updated student under
+    `teacher_update: step` and untouched otherwise; after two steps each
+    student parameter's change within 1e-2 of JAX's (relative to its norm),
+    and, after the epoch's teacher EMA, the student's and teacher's params
+    within 1e-5 for the ViT and 1e-4 for the ResNet (as the other ResNet step
+    tests hold them: Adam divides by sqrt(nu) + 1e-6, so a conv-weight
+    gradient that cancels to near 1e-6 carries float32 rounding into its
+    step), BN statistics and the center within 1e-5. The ViT fuses its views
     (default), the ResNet runs one forward per view."""
     small_resnet18(monkeypatch)
     cfg = _config(arch, **extra)
@@ -215,22 +228,53 @@ def test_two_train_steps_and_post_epoch(arch, extra, monkeypatch):
     if extra.get("center_init") == "zeros":
         assert tstate.extra["center"].value.eq(0).all()
     fc_out = [p.detach().clone() for p in tstate.model.proj.fc_out.parameters()]
+    student0, jstudent0 = _params(tstate.model), _jax_state_dicts(jstate, "dino")["model"]
     jstep = jax.jit(jalgo.train_step)
     for s in range(2):
         batch = _batch(s)
+        teacher_prev = _params(tstate.extra["teacher"])
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
                            jax.random.PRNGKey(0))
         tstate, tm = talgo.train_step(tstate, {k: t(v) for k, v in batch.items()})
         want, got = float(jm["loss"]), tm["loss"].item()
         assert abs(got - want) <= 1e-5 * max(1.0, abs(want)), (s, got, want)
+        _assert_teacher_step(jalgo, s, teacher_prev, tstate)
         if s == 0 and extra.get("freeze_last_layer"):
             assert all(torch.equal(a, b) for a, b in
                        zip(fc_out, tstate.model.proj.fc_out.parameters()))
+    jstudent = _jax_state_dicts(jstate, "dino")["model"]
+    for k, p in _params(tstate.model).items():
+        moved = p.double() - student0[k].double()
+        want = jstudent[k].double() - jstudent0[k].double()
+        assert (moved - want).norm() <= 1e-2 * want.norm(), (k, moved.norm(), want.norm())
     jstate = jalgo.post_epoch(jstate, 1)
     tstate = talgo.post_epoch(tstate, 1)
     assert tstate.step == int(jstate.step) == 2
     assert_state_matches(tstate, jstate, "dino", param_tol=1e-5 if arch == "vit" else 1e-4)
     assert not torch.equal(fc_out[0], tstate.model.proj.fc_out.v)
+
+
+def _params(module):
+    return {k: p.detach().clone() for k, p in module.named_parameters()}
+
+
+def _assert_teacher_step(jalgo, step, teacher_prev, tstate):
+    """The teacher after train step `step`: under `teacher_update: step`,
+    lambda * its value before + (1 - lambda) * the updated student, lambda
+    from JAX's cosine over the run's steps, to float32 rounding; under the
+    per-epoch EMA, unchanged."""
+    student = _params(tstate.model)
+    if jalgo.teacher_update == "step":
+        lbd = torch.tensor(float(JS.cosine_ramp(step, jalgo.total_steps, jalgo.lambda_lower,
+                                                jalgo.lambda_upper)))
+        assert lbd < 1
+    for k, p in _params(tstate.extra["teacher"]).items():
+        if jalgo.teacher_update == "step":
+            want = lbd * teacher_prev[k] + (1 - lbd) * student[k]
+            assert not torch.equal(p, teacher_prev[k]), k
+        else:
+            want = teacher_prev[k]
+        np.testing.assert_allclose(p.numpy(), want.numpy(), rtol=0, atol=1e-7, err_msg=k)
 
 
 def test_teacher_stats_take_the_last_trained_epochs_temperature(monkeypatch):

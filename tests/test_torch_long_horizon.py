@@ -4,7 +4,10 @@ CPU and with no model step: for each shipped config at the row's epochs
 `tools/quality_run.py` builds it, the port's per-step tables equal the JAX
 package's functions at every step of the run. The other schedule tests run
 a few steps (`test_torch_epoch_program.py`, `test_torch_small.py`); these
-isolate a fault of a long run's schedule from one of its training.
+isolate a fault of a long run's schedule from one of its training. DINO's
+row (ResNet-18, `teacher_update: step`, `center_init: zeros`, 1,000 epochs
+of 320 steps on 20,480 images at B = 64) holds its learning rate, weight
+decay, teacher temperature and per-step teacher momentum the same way.
 
 SwAV schedules nothing but its learning rate in either package (neither
 freezes its prototypes; the one freeze, DINO's `freeze_last_layer`, is not
@@ -35,13 +38,14 @@ ROWS = [("relic", 300, 512), ("barlow", 300, 512), ("swav", 300, 512), ("sela", 
         ("moco", 1000, 256), ("byol", 1000, 512), ("simsiam", 1000, 512)]
 
 
-def _build(algo, epochs, batch):
+def _build(algo, epochs, batch, n_train=N_TRAIN, overrides=None):
     """(config, the JAX algorithm, the port's algorithm and its schedule)."""
-    cfg = quality_config(algo, epochs, "shapes100", 50 if epochs == 300 else 100, None, {})
+    cfg = quality_config(algo, epochs, "shapes100", 50 if epochs == 300 else 100, None,
+                         overrides or {})
     assert cfg["data"]["batch_size"] == batch
-    spe = N_TRAIN // batch
-    jalgo = jax_build_algorithm(algo, cfg, "resnet18", JDataInfo(100, N_TRAIN, batch, spe))
-    talgo = build_algorithm(algo, cfg, "resnet18", TDataInfo(100, N_TRAIN, batch, spe), "cpu")
+    spe = n_train // batch
+    jalgo = jax_build_algorithm(algo, cfg, "resnet18", JDataInfo(100, n_train, batch, spe))
+    talgo = build_algorithm(algo, cfg, "resnet18", TDataInfo(100, n_train, batch, spe), "cpu")
     state = talgo.init_state(torch.Generator().manual_seed(0))
     return cfg, jalgo, talgo, state.scheduler, state.optimizer
 
@@ -122,3 +126,49 @@ def test_swav_schedules_only_its_learning_rate():
     _, jalgo, _, sched, _ = _build("swav", 300, 512)
     assert list(sched.columns) == ["lr"]
     assert not [k for k in vars(jalgo) if "freeze" in k or "tau" in k]
+
+
+def test_dino_resnet18_schedules_over_the_whole_run():
+    """DINO's ResNet-18 row: 1,000 epochs of 320 steps (20,480 images, B =
+    64), AdamW. At every one of the 320,001 steps the port's table holds the
+    learning rate within 2^-22 of the base rate of JAX's `lr_fn`, and within
+    1e-7 of the JAX package's functions: the weight decay (its cosine ramp
+    0.04 -> 0.4 over the epochs, as JAX's `wd_fn` takes it at step // 320),
+    the teacher temperature (0.04 -> 0.07 over 30 epochs, at step // 320)
+    and the per-step teacher momentum (`cosine_ramp` over the total steps,
+    as the step-EMA reads it at `state.step`), with their end values."""
+    spe, epochs = 20480 // 64, 1000
+    cfg, jalgo, talgo, sched, opt = _build(
+        "dino", epochs, 64, n_train=20480,
+        overrides={"teacher_update": "step", "center_init": "zeros"})
+    assert talgo.teacher_update == jalgo.teacher_update == "step"
+    assert talgo.center_init == jalgo.center_init == "zeros"
+    assert cfg["optimizer"]["name"] == "adamw"
+    n = epochs * spe + 1
+    assert sched.table.shape[0] == n and talgo.total_steps == jalgo.total_steps == n - 1
+    steps = jnp.arange(n)
+    epoch = steps // spe
+
+    got = _column(sched, "lr")
+    want = np.asarray(jax.jit(jax.vmap(jalgo.lr_fn()))(steps), np.float64)
+    assert np.abs(got - want).max() <= 2.0 ** -22 * float(cfg["optimizer"]["lr"])
+
+    wd = np.asarray(jax.jit(jax.vmap(lambda e: JS.cosine_ramp(
+        e, jalgo.epochs, jalgo.wd_lower, jalgo.wd_upper)))(epoch), np.float64)
+    temp = np.asarray(jax.jit(jax.vmap(lambda e: JS.dino_teacher_temp(
+        e, lower=jalgo.temp_t_lower, upper=jalgo.temp_t_upper,
+        warmup_epochs=jalgo.temp_warmup_epochs)))(epoch), np.float64)
+    lbd = np.asarray(jax.jit(jax.vmap(lambda s: JS.cosine_ramp(
+        s, jalgo.total_steps, jalgo.lambda_lower, jalgo.lambda_upper)))(steps), np.float64)
+    for name, want in (("weight_decay", wd), ("teacher_temp", temp), ("lambda", lbd)):
+        np.testing.assert_array_less(np.abs(_column(sched, name) - want), 1e-7, err_msg=name)
+    assert _column(sched, "weight_decay")[0] == pytest.approx(0.04, abs=1e-7)
+    assert _column(sched, "weight_decay")[-1] == pytest.approx(0.4, abs=1e-7)
+    assert _column(sched, "teacher_temp")[-1] == pytest.approx(0.07, abs=1e-7)
+    assert _column(sched, "lambda")[0] == pytest.approx(0.996, abs=1e-7)
+    assert _column(sched, "lambda")[-1] == 1.0
+    # in float32 the momentum rounds to 1.0 (a frozen teacher) about two
+    # epochs before the end in both packages, within a step of each other
+    # (the cosine's last bit)
+    frozen_at = np.argmax(_column(sched, "lambda") == 1.0), np.argmax(lbd == 1.0)
+    assert abs(frozen_at[0] - frozen_at[1]) <= 1 and max(frozen_at) < n - spe

@@ -4,6 +4,7 @@ tables, its rule on hand-made rows, the join of a row carried over calls,
 a tiny `quality_run --dataset shapes100` cut into two calls and read back,
 and the committed port rows against the rule and `ROADMAP.md`'s faults."""
 
+import ast
 import copy
 import json
 import os
@@ -20,7 +21,10 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX = qp.load(qp.JAX_PATH)
-JAX_ROWS = {r["algo"]: r for r in JAX["rows"]}
+with open(os.path.join(REPO, "scripts", "quality_run.py")) as _f:
+    # the JAX runner's default backbone by algorithm (resnet18 otherwise)
+    JAX_ARCH = ast.literal_eval(re.search(r"^ARCH = (\{.*?\})", _f.read(), re.M).group(1))
+JAX_ROWS = {r["algo"]: r for r in JAX["rows"]}   # one JAX row an algorithm so far
 
 
 def _validation_lines():
@@ -63,6 +67,23 @@ def test_jax_rows_equal_validation_md(algo):
                       r"bar 0\.5·log K = ([\d.]+)\)", lines[row["entropy_line"] - 1])
         assert [float(x) for x in m.groups()] == [
             row["pseudo_entropy_min"], row["pseudo_entropy_last"], row["half_log_K"]]
+    # the run's overrides as its dataset line gives them; the backbone: the
+    # JAX runner's default, or another that the section's reading names
+    overrides = re.search(r"overrides (\{.*\})\.", info)
+    assert (eval(overrides.group(1)) if overrides else {}) == row["overrides"]
+    if row["arch"] != JAX_ARCH.get(algo, "resnet18"):
+        reading = "\n".join(lines[row["line"]:row["line"] + 30])
+        assert f"{row['arch']} backbone" in reading
+    if "teacher_mi_curve" in row:
+        probe = lines[row["teacher_probe_line"] - 1]
+        assert probe.startswith(f"{algo} teacher-output probe")
+        assert [[int(e), float(mi)] for e, mi in re.findall(r"ep(\d+): mi=([\d.]+)", probe)] == \
+            row["teacher_mi_curve"]
+    if "loss_curve" in row:
+        text = lines[row["loss_line"] - 1]
+        (held,) = {v for _, v in row["loss_curve"]}
+        assert "No NaN in 1000 epochs" in text and f"loss held exactly {held}" in text
+        assert [e for e, _ in row["loss_curve"]] == [e for e, _ in curve]
 
 
 def _port(algo, seed=420, **values):
@@ -72,6 +93,7 @@ def _port(algo, seed=420, **values):
     row = {"algo": algo, "seed": seed, "epochs": j["epochs"], "n_train": j["n_train"],
            "n_test": j["n_test"], "knn_curve": copy.deepcopy(j["knn_curve"]),
            "best_knn": j["best_knn"], "linear": j["linear"]}
+    row.update({k: copy.deepcopy(j[k]) for k in ("arch", "overrides")})
     if j["best_knn_backbone"] is not None:
         row["best_knn_backbone"] = j["best_knn_backbone"]
     if "half_log_K" in j:
@@ -94,11 +116,23 @@ RULE_CASES = [
     ("pirl", [{"best_knn": 0.7816}, {"seed": 421, "best_knn": 0.70}], "miss", ["best_knn"]),
     ("moco", [{"best_knn": 0.80}, {"seed": 421, "best_knn": 0.8463}], "pass", ["best_knn"]),
     ("moco", [{"best_knn": 0.9, "linear": 0.5}], "pass", []),   # the probe is not judged
+    # a non-finite loss: a miss at once on any row, whatever the KNN before it
+    ("pirl", [{"best_knn": 0.95, "nan_at": 640}], "miss", ["loss non-finite at epoch 640"]),
+    ("byol", [{"best_knn_backbone": 0.99, "nan_at": 10}], "miss",
+     ["loss non-finite at epoch 10"]),
     # BYOL and SimSiam judged on the backbone KNN alone
     ("byol", [{"best_knn": 0.05, "best_knn_backbone": 0.9110}], "pass", []),
     ("simsiam", [{"best_knn_backbone": 0.8}, {"seed": 421, "best_knn_backbone": 0.85}],
      "miss", ["best_knn_backbone"]),
     ("simsiam", [{"best_knn_backbone": None}], "open", ["best_knn_backbone missing"]),
+    # DINO on ResNet-18 (step EMA, zero center): the backbone KNN with margin
+    # 0.05, the full-path KNN reported; any non-finite loss a miss at once
+    ("dino", [{"best_knn_backbone": 0.1358, "best_knn": 0.0}], "pass", []),
+    ("dino", [{"best_knn_backbone": 0.1357}], "open", ["best_knn_backbone"]),
+    ("dino", [{"best_knn_backbone": 0.10}, {"seed": 421, "best_knn_backbone": 0.12}], "miss",
+     ["best_knn_backbone"]),
+    ("dino", [{"best_knn_backbone": 0.30, "nan_at": 640}], "miss",
+     ["loss non-finite at epoch 640"]),
     # the entropy bar: SeLA (a 0.98 row) and DeepCluster (another)
     ("sela", [{"pseudo_entropy_min": 2.426}], "miss", ["entropy"]),
     ("sela", [{"pseudo_entropy_min": 2.427}], "pass", []),
@@ -137,6 +171,28 @@ def test_rule_refuses_a_row_at_another_horizon():
         qp.judge(JAX_ROWS["swav"], [_port("swav", epochs=40)], JAX["rule"])
 
 
+@pytest.mark.parametrize("arch,overrides", [
+    ("vit", {"teacher_update": "step", "center_init": "zeros"}),
+    ("vit", {}),                                       # the runner's default
+    ("resnet18", {"teacher_update": "step"}),
+])
+def test_a_dino_row_of_another_backbone_or_recipe_never_joins(arch, overrides, capsys):
+    """A DINO port row on the ViT, or on ResNet-18 under another recipe, is
+    not JAX's ResNet-18 row: `judge` refuses it, `judge_all` names it as
+    having no JAX row and fails the exit code, and the JAX row stays not
+    run; rows are told apart by `label`."""
+    row = _port("dino", arch=arch, overrides=overrides)
+    assert qp.row_key(row) != qp.row_key(JAX_ROWS["dino"])
+    with pytest.raises(ValueError, match="is not JAX's dino"):
+        qp.judge(JAX_ROWS["dino"], [row], JAX["rule"])
+    rc, text = qp.judge_all(JAX, [row])
+    assert rc == 1 and "JAX has no such row" in text
+    assert "== dino[resnet18 center_init=zeros teacher_update=step]: not run" in text
+    assert qp.label(JAX_ROWS["dino"]) == "dino[resnet18 center_init=zeros teacher_update=step]"
+    assert qp.label(JAX_ROWS["simsiam"]) == "simsiam"
+    assert qp.label(_port("dino", arch="vit", overrides={})) == "dino[vit]"
+
+
 def _eval(algo, e, epochs, knn, extra=""):
     return f"[{algo}/shapes100] epoch {e}/{epochs} loss=1.0000 knn={knn} ips=1,000{extra}"
 
@@ -150,11 +206,16 @@ def _json(algo, **kw):
 RESOLVED = "[{a}] dataset resolved: shapes100 (256 train / 128 test)"
 
 
+def _row_line(algo, arch="resnet18", overrides=None):
+    return f"[{algo}] row: " + json.dumps({"arch": arch, "overrides": overrides or {}})
+
+
 def test_join_two_calls():
     """A 4-epoch row cut after epoch 2's eval and resumed: the curve from
     both calls, the probe and entropies from the JSON lines, the wall summed,
     the best img/s, the diagnostics kept."""
-    c1 = "\n".join([RESOLVED.format(a="sela"), _eval("sela", 1, 4, 0.1, " captures=1"),
+    c1 = "\n".join([RESOLVED.format(a="sela"), _row_line("sela"),
+                    _eval("sela", 1, 4, 0.1, " captures=1"),
                     _eval("sela", 2, 4, 0.2, " captures=1 outside_s=0.5 peak_gib=1.0"),
                     _eval("simclr", 3, 4, 0.9)])
     c2 = "\n".join([RESOLVED.format(a="sela"), _eval("sela", 3, 4, 0.4),
@@ -170,6 +231,7 @@ def test_join_two_calls():
     assert (row["pseudo_entropy_min"], row["pseudo_entropy_last"]) == (1.5, 2.5)
     assert (row["img_per_sec"], row["wall_s"], row["calls"]) == (2000, 15, 2)
     assert (row["n_train"], row["n_test"], row["seed"]) == (256, 128, 420)
+    assert (row["arch"], row["overrides"]) == ("resnet18", {})
     assert row["diagnostics"]["rows"][:2] == [[1, 1.0, None, None, None], [2, 1.0, 0.5, None, 1.0]]
     qp.check_keys(row, 1)
 
@@ -179,18 +241,86 @@ def test_join_two_calls():
     ("disagree", "calls disagree at epoch 2"),
     ("no_row", "the last call printed no row"),
     ("other_horizon", "calls ran 4 and 5 epochs"),
+    ("unnamed", "no log names the row's backbone and overrides"),
 ])
 def test_join_raises(case, match):
     """A missing eval epoch, two calls that disagree about one epoch, a last
-    call cut before its JSON line, calls of two horizons."""
-    c1 = "\n".join([_eval("swav", 1, 4, 0.1), _eval("swav", 2, 4, 0.2)])
+    call cut before its JSON line, calls of two horizons, logs that never
+    name the row's backbone and overrides."""
+    named = [] if case == "unnamed" else [_row_line("swav")]
+    c1 = "\n".join(named + [_eval("swav", 1, 4, 0.1), _eval("swav", 2, 4, 0.2)])
     c2 = {"gap": [_eval("swav", 4, 4, 0.4), _json("swav")],
           "disagree": [_eval("swav", 2, 4, 0.25), _eval("swav", 3, 4, 0.3),
                        _eval("swav", 4, 4, 0.4), _json("swav")],
           "no_row": [_eval("swav", 3, 4, 0.3), _eval("swav", 4, 4, 0.4)],
-          "other_horizon": [_eval("swav", 3, 5, 0.3), _json("swav")]}[case]
+          "other_horizon": [_eval("swav", 3, 5, 0.3), _json("swav")],
+          "unnamed": [_eval("swav", 3, 4, 0.3), _eval("swav", 4, 4, 0.4), _json("swav")]}[case]
     with pytest.raises(ValueError, match=match):
         qp.join("swav", [c1, "\n".join(c2)], 1)
+
+
+DINO_SET = {"teacher_update": "step", "center_init": "zeros"}
+DINO_RESOLVED = "[dino] dataset resolved: shapes100 (20,480 train / 4,096 test)"
+
+
+def _named(arch):
+    return "[dino] row: " + json.dumps({"arch": arch, "overrides": DINO_SET})
+
+
+def _dino_evals(last, backbone=0.17):
+    return [_eval("dino", e, 1000, 0.02, f" knn_backbone={backbone} t_mi=0.00000 "
+                  f"t_pstd=1.0e-07 captures=1").replace("loss=1.0000", "loss=13.8629")
+            for e in range(100, last + 1, 100)]
+
+
+def test_join_a_dino_resnet18_row(tmp_path, capsys):
+    """A DINO ResNet-18 row's log: the join takes its backbone and overrides
+    from the runner's `row:` line, keeps the teacher probe's `mi` and the loss at each
+    eval, and the tool judges it against JAX's ResNet-18 row, reporting the
+    full-path KNN, `mi` and the loss beside the judged backbone KNN."""
+    log = tmp_path / "dino.log"
+    log.write_text("\n".join([DINO_RESOLVED, _named("resnet18"), *_dino_evals(1000),
+                              _json("dino", linear=0.01)]))
+    assert qp.main(["--join", "dino", str(log)]) == 0
+    out = capsys.readouterr().out
+    row = json.loads(out.splitlines()[0])
+    assert (row["arch"], row["overrides"], row["best_knn_backbone"]) == (
+        "resnet18", DINO_SET, 0.17)
+    assert row["teacher_mi_curve"] == [[e, 0.0] for e in range(100, 1001, 100)]
+    assert row["loss_curve"][-1] == [1000, 13.8629]
+    assert "== dino[resnet18 center_init=zeros teacher_update=step]: 1000 epochs, batch 64" in out
+    assert "teacher_mi_curve s420 (port/JAX, not judged): 100:0.0000/0.0000" in out
+    assert "loss_curve s420 (port/JAX, not judged): 100:13.8629/13.8629" in out
+    assert "best_knn (not judged) JAX 0.0213  port s420 0.0200" in out
+    assert "verdict: PASS" in out
+
+
+def test_join_a_run_ended_by_a_non_finite_loss(tmp_path, capsys):
+    """A run the runner ended at a non-finite loss (epoch 640): the curve
+    stops there with that state's KNN, the row carries `nan_at`, and it
+    misses, whatever its backbone KNN."""
+    log = tmp_path / "dino.log"
+    log.write_text("\n".join([
+        DINO_RESOLVED, _named("resnet18"), *_dino_evals(600, backbone=0.3),
+        "[dino/shapes100] epoch 640: loss=nan — non-finite state is terminal, aborting "
+        "(knn=0.0100)",
+        _json("dino", linear=None, nan_at=640,
+              knn_curve=[[e, 0.02] for e in range(100, 601, 100)] + [[640, 0.01]])]))
+    assert qp.main(["--join", "dino", str(log)]) == 1
+    out = capsys.readouterr().out
+    row = json.loads(out.splitlines()[0])
+    assert row["nan_at"] == 640 and row["knn_curve"][-1] == [640, 0.01]
+    assert row["linear"] is None and row["best_knn_backbone"] == 0.3
+    assert "below: loss non-finite at epoch 640" in out and "verdict: MISS" in out
+
+
+def test_join_refuses_a_vit_dino_log(tmp_path):
+    """The join of a DINO run on the ViT finds no JAX row to judge it by."""
+    log = tmp_path / "dino.log"
+    log.write_text("\n".join([DINO_RESOLVED, _named("vit"), *_dino_evals(1000),
+                              _json("dino")]))
+    with pytest.raises(ValueError, match=r"JAX has no dino\[vit"):
+        qp.main(["--join", "dino", str(log)])
 
 
 class Cut(BaseException):
@@ -238,6 +368,8 @@ def test_tiny_shapes100_row_over_two_calls(tmp_path, monkeypatch, capsys):
     e1 = re.search(r"epoch 1/2 .*knn=([\d.]+)", logs[0].read_text()).group(1)
     assert row["knn_curve"][0] == [1, float(e1)] and [e for e, _ in row["knn_curve"]] == [1, 2]
     assert (row["calls"], row["n_train"], row["n_test"], row["epochs"]) == (2, 320, 128, 2)
+    assert (row["arch"], row["overrides"]) == ("tiny", {
+        "linear_eval.epochs": 1, "feature_bank_size": 128, "prototype_size": 32})
     assert row["diagnostics"]["columns"] == ["epoch", "captures", "outside_s", "alloc_gib",
                                              "peak_gib"]
     assert all(r[1] == 0 for r in row["diagnostics"]["rows"])   # no graph on the CPU
@@ -252,22 +384,29 @@ def _roadmap_faults() -> str:
 
 
 def test_committed_port_rows_pass_or_are_open_faults(capsys):
-    """Each committed port row ran at JAX's horizon and sizes on an H100
-    with its card line and commit; the tool exits 0 over them, or each row
-    that does not pass is listed in ROADMAP.md §3 as `shapes100 <algo>`."""
+    """Each committed port row ran at the horizon, sizes, backbone and
+    overrides of a JAX row on an H100 with its card line and commit; the
+    tool exits 0 over them, or each JAX row whose port rows do not pass, or
+    that has none, is listed in ROADMAP.md §3 as `shapes100 <label>`."""
     rows = qp.load(qp.PORT_PATH)["rows"]
     assert rows
+    jax_rows = {qp.row_key(j): j for j in JAX["rows"]}
+    assert len(jax_rows) == len(JAX["rows"])
     for r in rows:
-        j = JAX_ROWS[r["algo"]]
+        j = jax_rows[qp.row_key(r)]
         assert (r["epochs"], r["n_train"], r["n_test"], r["batch"]) == (
             j["epochs"], j["n_train"], j["n_test"], j["batch"]), r["algo"]
         assert "H100" in r["card"] and r["commit"], r["algo"]
     rc = qp.main([])
     out = capsys.readouterr().out
-    verdicts = dict(re.findall(r"(\w+) (pass|miss|open)", out.splitlines()[-1]))
-    assert set(verdicts) == {r["algo"] for r in rows}
+    last = out.splitlines()[-1]
+    assert last.startswith("verdicts: ")
+    verdicts = dict(v.rsplit(" ", 1) for v in last[len("verdicts: "):].split(", "))
+    assert set(verdicts) == {qp.label(j) for j in JAX["rows"]}
+    assert {qp.label(r) for r in rows} <= set(verdicts)
     faults = _roadmap_faults()
     assert rc == (0 if set(verdicts.values()) == {"pass"} else 1)
-    for algo, verdict in verdicts.items():
+    for name, verdict in verdicts.items():
+        assert verdict in ("pass", "miss", "open", "not_run"), name
         if verdict != "pass":
-            assert f"shapes100 {algo}" in faults, algo
+            assert f"shapes100 {name}" in faults, name
