@@ -212,11 +212,12 @@ def phase_env() -> str:
 def phase_build() -> None:
     from ssv_tpu_torch.ops import build
 
-    t0 = time.perf_counter()
-    path = build.build("photometric")
-    build.load("photometric")
-    print(f"[build] photometric.cu -> {os.path.relpath(path, HERE)} "
-          f"in {time.perf_counter() - t0:.2f} s")
+    for name in ("photometric", "phase_mark"):
+        t0 = time.perf_counter()
+        path = build.build(name)
+        build.load(name)
+        print(f"[build] {name}.cu -> {os.path.relpath(path, HERE)} "
+              f"in {time.perf_counter() - t0:.2f} s")
 
 
 def phase_kernels(card: str) -> list[dict]:
@@ -493,23 +494,19 @@ def _gib(nbytes: int) -> str:
 
 
 def _reset_launches() -> None:
-    """Every count of photometric launches to 0: the wrapper's, and the
-    graph replays' (`train/graph.py`)."""
-    from ssv_tpu_torch.ops.photometric import fused_photometric
-    from ssv_tpu_torch.train.graph import StepGraph
+    """The count of photometric launches (`utils/trace.py`) to 0."""
+    from ssv_tpu_torch.utils import trace
 
-    fused_photometric.launches = 0
-    StepGraph.replayed_launches = 0
+    trace.counters["photometric.launches"] = 0
 
 
 def _launches() -> int:
     """The photometric kernel's launches since `_reset_launches`: the
-    wrapper's count (a captured step's launches count once, as its graph's
-    first replay) and the launches of every later replay of a graph."""
-    from ssv_tpu_torch.ops.photometric import fused_photometric
-    from ssv_tpu_torch.train.graph import StepGraph
+    wrapper's (a captured step's launches count once, as its graph's first
+    replay) and those of every later replay of a graph."""
+    from ssv_tpu_torch.utils import trace
 
-    return fused_photometric.launches + StepGraph.replayed_launches
+    return trace.counters.get("photometric.launches", 0)
 
 
 def _check_launches(name: str, launches: int, steps: int) -> None:
@@ -697,13 +694,16 @@ def _one_epoch(trainer) -> dict:
     for name, module in state.extra.items():
         tensors.update({f"{name}.{k}": v.detach().cpu()
                         for k, v in module.state_dict().items()})
+    from ssv_tpu_torch.utils import trace
+
     graph = trainer.graph
     return {"losses": metrics["loss"].tolist(), "tensors": tensors, "step": state.step,
             "counter": int(state.counter), "generator": trainer.generator.get_state(),
             "mode": trainer.epoch_mode, "launches": _launches(),
             "graph": None if graph is None else {
                 "captured_launches": graph.launches, "replays": graph.replays,
-                "capture_s": graph.capture_s, "pool_bytes": graph.pool_bytes}}
+                "capture_s": trace.last_seconds("graph.capture"),
+                "pool_bytes": graph.pool_bytes}}
 
 
 def _graph_agreement(name: str, arch: str, batch: int, extra: dict) -> dict:
@@ -2267,11 +2267,12 @@ def _swav_bf16_steps(device) -> dict:
 
     from ssv_tpu_torch.data.pipeline import DataPipeline
     from ssv_tpu_torch.objectives.losses import l2_normalize
-    from ssv_tpu_torch.parallel import batch_slice, mesh, per_device
+    from ssv_tpu_torch.parallel import batch_slice, mesh
     from ssv_tpu_torch.parallel.dryrun import digest
     from ssv_tpu_torch.state.banks import ring_push
     from ssv_tpu_torch.train.base import DataInfo
     from ssv_tpu_torch.train.registry import build_algorithm
+    from ssv_tpu_torch.utils import trace
 
     with open(os.path.join(HERE, "configs", "swav.yaml")) as f:
         cfg = yaml.safe_load(f)
@@ -2292,7 +2293,8 @@ def _swav_bf16_steps(device) -> dict:
     for s in range(TP_STEPS):
         if s == TP_STEPS // 2:       # the second half is timed
             torch.cuda.synchronize(device)
-            per_device.collectives.reset()
+            before = {k: trace.counters.get(f"collectives.{k}", 0)
+                      for k in ("calls", "bytes", "host_s")}
             t0 = time.perf_counter()
         state, m = algo.train_step(
             state, batch_fn(images, labels, batch_slice(idx_mat[s]), generator), generator)
@@ -2300,12 +2302,13 @@ def _swav_bf16_steps(device) -> dict:
     torch.cuda.synchronize(device)
     timed = TP_STEPS - TP_STEPS // 2
     seconds = time.perf_counter() - t0
-    coll = per_device.collectives
+    coll = {k: trace.counters.get(f"collectives.{k}", 0) - v for k, v in before.items()}
     out = {"losses": losses, "launches": _launches(),
            "tower": digest(state.model.tower, state.extra["bank"]),
            "shard": digest(state.model.prototypes), "step_ms": 1e3 * seconds / timed,
-           "collectives_per_step": coll.calls / timed, "mb_per_step": coll.bytes / timed / 1e6,
-           "collective_ms_per_step": 1e3 * coll.seconds / timed,
+           "collectives_per_step": coll["calls"] / timed,
+           "mb_per_step": coll["bytes"] / timed / 1e6,
+           "collective_ms_per_step": 1e3 * coll["host_s"] / timed,
            "shard_rows": state.model.prototypes.table.shape[0]}
     del algo, state, pipeline
     gc.collect()

@@ -162,6 +162,7 @@ def measure(trainer, steps: int) -> dict:
     """The warm epoch, then the timed one (module docstring); the line."""
     from .tools.measure import card_line
     from .train.graph import WARMUP_STEPS
+    from .utils import trace
 
     cuda = trainer.device.type == "cuda"
     if cuda and steps <= WARMUP_STEPS:
@@ -221,7 +222,7 @@ def measure(trainer, steps: int) -> dict:
         "final_loss": final_loss,
         "peak_memory_gib": torch.cuda.max_memory_allocated(trainer.device) / 2**30
         if cuda else None,
-        "capture_s": trainer.graph.capture_s if trainer.graph else None,
+        "capture_s": trace.last_seconds("graph.capture") if trainer.graph else None,
         "replays": replays, "photometric_launches": launches, "card": card}
 
 

@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from ..utils import trace
+
 GRAY_W = (0.299, 0.587, 0.114)
 
 
@@ -109,8 +111,8 @@ def fused_photometric(images, order, params):
     """(B, H, W, 3) float32 images in [0, 1] -> jittered, gray-gated images.
 
     CUDA tensors go through the hand-written kernel, CPU tensors through
-    `photometric_reference`. Counts kernel launches in
-    `fused_photometric.launches`."""
+    `photometric_reference`. Counts kernel launches in the counter
+    `photometric.launches` (`utils/trace.py`)."""
     if images.device.type == "cpu":
         return photometric_reference(images, order, params)
     if images.device.type != "cuda":
@@ -141,11 +143,8 @@ def fused_photometric(images, order, params):
             B, H * W, ctypes.c_void_p(torch.cuda.current_stream(images.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"fused_photometric kernel launch failed: CUDA error {err}")
-    fused_photometric.launches += 1
+    trace.count("photometric.launches")
     return out
-
-
-fused_photometric.launches = 0
 
 
 def _library():

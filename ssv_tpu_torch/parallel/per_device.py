@@ -67,30 +67,19 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..utils import trace
 from . import mesh
 
 LOSS_SCOPES = ("global", "local")
 
 
-class _Counts:
-    """Collective calls, the bytes they carry and the host seconds they take
-    (blocking on gloo; the enqueue alone on NCCL), for step_profile."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self.calls = 0
-        self.bytes = 0
-        self.seconds = 0.0
-
-    def add(self, t: torch.Tensor, t0: float):
-        self.calls += 1
-        self.bytes += t.numel() * t.element_size()
-        self.seconds += time.perf_counter() - t0
-
-
-collectives = _Counts()
+def _count(t: torch.Tensor, t0: float) -> None:
+    """One collective's call, the bytes it carries and the host seconds it
+    took (blocking on gloo; the enqueue alone on NCCL), in the
+    `collectives.*` counters."""
+    trace.count("collectives.calls")
+    trace.count("collectives.bytes", t.numel() * t.element_size())
+    trace.count("collectives.host_s", time.perf_counter() - t0)
 
 
 def _data(group):
@@ -102,7 +91,7 @@ def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Reduces `t` over `group` (None: the world), in place."""
     t0 = time.perf_counter()
     dist.all_reduce(t, op=op, group=group)
-    collectives.add(t, t0)
+    _count(t, t0)
     return t
 
 
@@ -111,7 +100,7 @@ def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(mesh.group_size(group))]
     dist.all_gather(parts, x, group=group)
     out = torch.cat(parts)
-    collectives.add(out, t0)
+    _count(out, t0)
     return out
 
 

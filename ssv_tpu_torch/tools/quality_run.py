@@ -114,8 +114,8 @@ def run_one(algo: str, epochs: int, dataset: str, eval_every: int,
             run_root: str = os.path.join("outputs", "quality"), seed: int = 420) -> dict:
     """One algorithm's run in `<run_root>/<algo>/`; returns its row."""
     from ..evals.knn import compute_neighbor_accuracy
-    from ..train.graph import StepGraph
     from ..train.trainer import Trainer
+    from ..utils import trace
 
     cfg = quality_config(algo, epochs, dataset, eval_every, batch, overrides)
     d = os.path.join(run_root, algo)
@@ -153,7 +153,7 @@ def run_one(algo: str, epochs: int, dataset: str, eval_every: int,
     cuda = tr.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(tr.device)
-    captures = StepGraph.captures
+    captures = trace.counters.get("graph.captures", 0)
     outside = []  # each epoch's seconds outside its steps (pre/post_epoch, the draw)
 
     for e in range(start_epoch, epochs + 1):
@@ -204,7 +204,7 @@ def run_one(algo: str, epochs: int, dataset: str, eval_every: int,
                      round(ts["raw_std"], 4), round(ts["ent_frac"], 4)))
                 msg += (f" t_mi={ts['mi']:.5f} t_pstd={ts['prob_std']:.2e}"
                         f" t_rawstd={ts['raw_std']:.4f} t_entfrac={ts['ent_frac']:.4f}")
-            msg += (f" captures={StepGraph.captures - captures}"
+            msg += (f" captures={trace.counters.get('graph.captures', 0) - captures}"
                     f" outside_s={float(np.mean(outside)):.3f}")
             outside = []
             if cuda:

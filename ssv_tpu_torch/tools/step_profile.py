@@ -113,7 +113,7 @@ def profile_trainer(trainer, warmup: int = 10, steps: int = 30, profiled: int = 
     from torch.profiler import ProfilerActivity, profile
 
     from ..parallel import batch_slice, rank, world_size
-    from ..parallel.per_device import collectives
+    from ..utils import trace
 
     card = card_line()
     algo, arch = trainer.args["algo"], trainer.args["arch"]
@@ -146,11 +146,12 @@ def profile_trainer(trainer, warmup: int = 10, steps: int = 30, profiled: int = 
 
     for s in range(warmup):
         step(s)
-    collectives.reset()
+    before = {k: trace.counters.get(f"collectives.{k}", 0) for k in ("calls", "bytes", "host_s")}
     step_ms = host_ms(step, warmup)
-    coll = {"collectives_per_step": collectives.calls / steps,
-            "collective_mb_per_step": collectives.bytes / steps / 1e6,
-            "collective_host_ms_per_step": collectives.seconds / steps * 1e3}
+    coll = {k: trace.counters.get(f"collectives.{k}", 0) - v for k, v in before.items()}
+    coll = {"collectives_per_step": coll["calls"] / steps,
+            "collective_mb_per_step": coll["bytes"] / steps / 1e6,
+            "collective_host_ms_per_step": coll["host_s"] / steps * 1e3}
     batch_ms = host_ms(batch, warmup + steps)
     first = warmup + 2 * steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -179,7 +180,7 @@ def profile_trainer(trainer, warmup: int = 10, steps: int = 30, profiled: int = 
         "top_us_per_step": {n: us / profiled for n, us in
                             sorted(by_name.items(), key=lambda kv: -kv[1])[:top]},
         "ops_per_step_by_name": {n: c / profiled for n, c in count.items()},
-        "capture_s": trainer.graph.capture_s if trainer.graph else None,
+        "capture_s": trace.last_seconds("graph.capture") if trainer.graph else None,
         "pool_bytes": trainer.graph.pool_bytes if trainer.graph else None,
         **coll, "card": card}
     if world_size() > 1:

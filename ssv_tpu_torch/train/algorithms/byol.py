@@ -21,6 +21,7 @@ from ...models.heads import byol_mlp
 from ...models.registry import build_encoder
 from ...objectives.losses import byol_mse
 from ...state.ema import ema_update
+from ...utils import trace
 from ...utils.schedules import cosine_ramp
 from ..base import Algorithm, DataInfo, TrainState
 from .common import Tower, forward_views
@@ -73,6 +74,7 @@ class BYOL(Algorithm):
         state.model.train()
         with self.autocast():
             o1, o2 = forward_views(state.model, views, self.fuse)
+        trace.phase("loss")
         loss = byol_mse(o1.float(), o2.float(), t1, t2)
         tau = state.scheduler.at("tau")
         state, loss = self.grad_step(state, loss)

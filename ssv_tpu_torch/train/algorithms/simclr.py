@@ -9,6 +9,7 @@ from ...models.heads import simclr_projection
 from ...models.registry import build_encoder
 from ...objectives.losses import l2_normalize, nt_xent
 from ...parallel import pgather
+from ...utils import trace
 from ..base import Algorithm, DataInfo, TrainState
 from .common import Tower, forward_views
 
@@ -37,6 +38,7 @@ class SimCLR(Algorithm):
         with self.autocast():
             z1, z2 = forward_views(model, [batch["aug_1"], batch["aug_2"]], self.fuse)
         # the negatives span the global batch
+        trace.phase("loss")
         loss = nt_xent(pgather(z1.float()), pgather(z2.float()), **self.loss_cfg)
         state, loss = self.grad_step(state, loss, loss_scope="global")
         return state, {"loss": loss}

@@ -36,6 +36,7 @@ import torch
 
 from ..parallel import pmean, pmean_bn_, reduce_grads, sync_batchnorm
 from ..parallel.mesh import data_size
+from ..utils import trace
 from .optim import StepSchedule, get_optimizer
 
 
@@ -188,10 +189,13 @@ class Algorithm:
         statistics of the state's modules are replica-meaned after the step.
         The gradients are set to None before the backward, which allocates
         them anew (inside a captured step, from the graph's pool: they stay
-        the graph's until it is dropped)."""
+        the graph's until it is dropped). It marks the step's phases
+        `backward`, `optimizer` and `state` (`utils/trace.py`)."""
+        trace.phase("backward")
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.reduce_gradients(state, loss_scope)
+        trace.phase("optimizer")
         masked, on = update_mask or ((), None)
         frozen = [p.detach().clone() for p in masked]
         state.optimizer.step()
@@ -199,6 +203,7 @@ class Algorithm:
             for p, old in zip(masked, frozen):
                 p.copy_(torch.where(on, old, p))
         state.scheduler.step()
+        trace.phase("state")
         state.step += 1
         if self.per_device_bn:
             pmean_bn_(state.model, *state.extra.values())

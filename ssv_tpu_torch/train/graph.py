@@ -34,19 +34,22 @@ epoch's index matrix and metric buffers (`Trainer.begin_epoch`).
   * A failed capture or replay raises with its CUDA error: nothing falls
     back to the eager step.
 
-The photometric wrapper counts its launches as it makes them, so the
-capture's count stands for the graph's first replay; `replayed_launches`
-counts those of every later replay.
+Its counts and spans are in `utils/trace.py`: `graph.warmup_steps`,
+`graph.captures` and `graph.replays`, and the recorded spans
+`graph.warmup` (each warm-up step) and `graph.capture`; a replay is a span
+`graph.replay` under a profiler only. The photometric wrapper counts its
+launches (`photometric.launches`) as it makes them, so the capture's count
+stands for the graph's first replay, and every later replay adds the
+launches its capture held.
 """
 
 from __future__ import annotations
 
-import time
 from functools import lru_cache
 
 import torch
 
-from ..ops.photometric import fused_photometric
+from ..utils import trace
 
 WARMUP_STEPS = 3
 
@@ -67,15 +70,11 @@ def _stream(index: int) -> torch.cuda.Stream:
 class StepGraph:
     """One trainer's captured train step."""
 
-    replayed_launches = 0   # photometric launches of replays after each graph's first
-    captures = 0            # graphs captured in this process
-
     def __init__(self):
         self.graph: torch.cuda.CUDAGraph | None = None
         self.warm = 0
         self.launches = 0       # photometric launches the captured step holds
         self.replays = 0
-        self.capture_s: float | None = None
         self.pool_bytes: int | None = None
 
     def step(self, trainer, state) -> None:
@@ -84,14 +83,17 @@ class StepGraph:
         if self.graph is not None:
             self._replay(state)
         elif self.warm < WARMUP_STEPS:
-            side = side_stream(trainer.device)
-            side.wait_stream(torch.cuda.current_stream(trainer.device))
-            with torch.cuda.stream(side):
-                trainer._train_step(state)
-            torch.cuda.current_stream(trainer.device).wait_stream(side)
+            with trace.span("graph.warmup", record=True):
+                side = side_stream(trainer.device)
+                side.wait_stream(torch.cuda.current_stream(trainer.device))
+                with torch.cuda.stream(side):
+                    trainer._train_step(state)
+                torch.cuda.current_stream(trainer.device).wait_stream(side)
             self.warm += 1
+            trace.count("graph.warmup_steps")
         else:
-            self._capture(trainer, state)
+            with trace.span("graph.capture", record=True):
+                self._capture(trainer, state)
             self._replay(state)
 
     def _capture(self, trainer, state) -> None:
@@ -102,8 +104,8 @@ class StepGraph:
         reserved = torch.cuda.memory_reserved(device)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(trainer.generator)
-        step, taken, launches = state.step, state.scheduler.taken, fused_photometric.launches
-        t0 = time.perf_counter()
+        step, taken = state.step, state.scheduler.taken
+        launches = trace.counters.get("photometric.launches", 0)
         try:
             # thread_local: a process group's watchdog thread may query its
             # events meanwhile, and the step is all on this thread
@@ -113,17 +115,18 @@ class StepGraph:
         except Exception as err:
             raise RuntimeError(f"capturing the {trainer.algorithm.name} train step as a "
                                f"CUDA graph failed: {err}") from err
-        self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         state.step, state.scheduler.taken = step, taken
-        self.launches = fused_photometric.launches - launches
+        self.launches = trace.counters.get("photometric.launches", 0) - launches
         self.graph = graph
-        StepGraph.captures += 1
+        trace.count("graph.captures")
 
     def _replay(self, state) -> None:
-        self.graph.replay()
+        with trace.span("graph.replay"):
+            self.graph.replay()
         state.step += 1
         state.scheduler.taken += 1
         if self.replays:
-            StepGraph.replayed_launches += self.launches
+            trace.count("photometric.launches", self.launches)
         self.replays += 1
+        trace.count("graph.replays")

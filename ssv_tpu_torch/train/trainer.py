@@ -17,6 +17,18 @@ eagerly. Both give the same results from the same state and draws.
 `args["load"]` resumes from a run's directory. With `SSV_TPU_PROFILE_DIR`
 set, `train()` writes a `torch.profiler` trace of one epoch there.
 
+What the trainer measures of itself (`utils/trace.py`): on CUDA every step
+marks its phases on the card (views, forward, loss where the algorithm
+marks it, backward, optimizer, state, end), into a (steps, marks) buffer
+beside the metrics', read with them at the epoch's end; `train()` puts the
+median of each phase, and of the gap between steps, into the epoch's
+record (`phase_ms`), with the host seconds of the epoch boundary's
+recorded spans (`boundary_s`) and the process's counters. Set-up is
+recorded as the spans `setup.config`, `setup.pipeline`,
+`setup.algorithm`, `setup.state` and `setup.load`. Under a profiler each
+step is a range `step <s>`, over its phases' ranges in an eager step or a
+`graph.replay`.
+
 Under a process group (`parallel/`, started by `python -m
 ssv_tpu_torch.main` under torchrun) every rank builds the same state,
 rank 0's epoch index matrix is broadcast, and each rank trains on its
@@ -41,9 +53,9 @@ from ..core.experiment import DEFAULT_SEED, initialize_experiment
 from ..data.pipeline import DataPipeline
 from ..evals.knn import compute_neighbor_accuracy
 from ..evals.linear import linear_evaluation
-from ..ops.photometric import fused_photometric
 from ..parallel import batch_slice, pgather, rank, replicate, world_size
 from ..parallel.mesh import barrier, broadcast_, data_rank
+from ..utils import trace
 from ..utils.logging import get_wandb, progress_bar
 from .base import DataInfo, TrainState
 from .checkpoint import restore_state, save_state
@@ -51,6 +63,9 @@ from .graph import StepGraph
 from .registry import build_algorithm
 
 STEADY_AFTER = 5  # steps of an epoch left out of its steady-state img/s
+# the recorded spans of the epoch boundary, summed into an epoch's `boundary_s`
+BOUNDARY = ("pre_epoch", "epoch_indices", "begin_epoch", "end_epoch", "post_epoch",
+            "knn_eval", "checkpoint")
 
 
 def default_device(device: torch.device | str | None = None) -> torch.device:
@@ -89,61 +104,70 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
 
         algo_name, arch = args["algo"], args["arch"]
-        output_root = os.path.join("outputs", algo_name, arch)
-        config, self.output_dir, self.logger = initialize_experiment(
-            self.args, output_root, self.device, seed=seed, make_dirs=make_dirs)
-        cfg = config.raw()
-        if overrides:
-            cfg = _merge(cfg, overrides)
-        self.config = cfg
+        with trace.span("setup.config", record=True):
+            output_root = os.path.join("outputs", algo_name, arch)
+            config, self.output_dir, self.logger = initialize_experiment(
+                self.args, output_root, self.device, seed=seed, make_dirs=make_dirs)
+            cfg = config.raw()
+            if overrides:
+                cfg = _merge(cfg, overrides)
+            self.config = cfg
 
-        self.wandb = get_wandb()
-        self.wandb.init(project=(cfg.get("wandb") or {}).get("project"),
-                        output_dir=self.output_dir if make_dirs else None)
+            self.wandb = get_wandb()
+            self.wandb.init(project=(cfg.get("wandb") or {}).get("project"),
+                            output_dir=self.output_dir if make_dirs else None)
 
-        self.pipeline = DataPipeline(cfg["data"], self.device, allow_synthetic=allow_synthetic,
-                                     synthetic_sizes=synthetic_sizes, dataset=dataset)
-        self.data_info = DataInfo(
-            num_classes=self.pipeline.num_classes,
-            n_train=self.pipeline.n_train,
-            batch_size=self.pipeline.batch_size,
-            steps_per_epoch=self.pipeline.steps_per_epoch,
-        )
-        self.algorithm = build_algorithm(algo_name, cfg, arch, self.data_info,
-                                         self.device)
+        with trace.span("setup.pipeline", record=True):
+            self.pipeline = DataPipeline(cfg["data"], self.device,
+                                         allow_synthetic=allow_synthetic,
+                                         synthetic_sizes=synthetic_sizes, dataset=dataset)
+            self.data_info = DataInfo(
+                num_classes=self.pipeline.num_classes,
+                n_train=self.pipeline.n_train,
+                batch_size=self.pipeline.batch_size,
+                steps_per_epoch=self.pipeline.steps_per_epoch,
+            )
+        with trace.span("setup.algorithm", record=True):
+            self.algorithm = build_algorithm(algo_name, cfg, arch, self.data_info,
+                                             self.device)
         self.epochs = int(cfg["epochs"])
         self.eval_every = int(cfg.get("eval_every", 10))
 
-        # every random draw of the run comes from this device generator (one
-        # a data rank, data rank 0's of the run's seed: the model ranks of a
-        # row draw the same augmentations); the weights from a host
-        # generator of the seed, the same on every rank, and rank 0's copy
-        # is put on every rank
-        self.generator = torch.Generator(device=self.device).manual_seed(seed + data_rank())
-        self.state: TrainState = self.algorithm.init_state(
-            torch.Generator().manual_seed(seed))
-        for module in (self.state.model, *self.state.extra.values()):
-            replicate(module)
+        with trace.span("setup.state", record=True):
+            # every random draw of the run comes from this device generator
+            # (one a data rank, data rank 0's of the run's seed: the model
+            # ranks of a row draw the same augmentations); the weights from
+            # a host generator of the seed, the same on every rank, and rank
+            # 0's copy is put on every rank
+            self.generator = torch.Generator(device=self.device).manual_seed(seed + data_rank())
+            self.state: TrainState = self.algorithm.init_state(
+                torch.Generator().manual_seed(seed))
+            for module in (self.state.model, *self.state.extra.values()):
+                replicate(module)
 
-        self._batch_fn = self.pipeline.make_batch_fn(self.algorithm.batch_kind)
-        self._eval_t = self.pipeline.make_eval_transform()
+            self._batch_fn = self.pipeline.make_batch_fn(self.algorithm.batch_kind)
+            self._eval_t = self.pipeline.make_eval_transform()
         self.best_metric = 0.0
         self.start_epoch = 1
         self.epoch_stats: list[dict] = []
         self.linear_eval_stats: dict | None = None
-        self._tracing = False   # inside `_trace`: each step is a profiler span
 
         self.epoch_mode, self.epoch_mode_reason = self._epoch_mode()
         # the epoch's inputs and outputs on the device, at fixed addresses (a
         # captured step reads and writes them): the index matrix, the
-        # position of the step in it, one (steps,) buffer a metric
+        # position of the step in it, one (steps,) buffer a metric, and on
+        # CUDA the steps' phase marks (`utils/trace.py`)
         self._epoch_idx: torch.Tensor | None = None
         self._pos = torch.zeros((), dtype=torch.int64, device=self.device)
         self._metric_bufs: dict[str, torch.Tensor] = {}
+        self._stamps: torch.Tensor | None = None
+        self._host_pos = 0      # the host's count of the same position
+        self.phase_ms: dict[str, float] | None = None   # the last epoch's
         self.graph: StepGraph | None = None
 
         if self.args.get("load"):
-            self.load_checkpoint(self.args["load"])
+            with trace.span("setup.load", record=True):
+                self.load_checkpoint(self.args["load"])
 
     # ------------------------------------------------------------------
     # feature extraction (the reference's build_features)
@@ -217,13 +241,14 @@ class Trainer:
     def save_checkpoint(self, name: str = "best_model", epoch: int | None = None):
         """Every rank takes part (the generators are gathered); rank 0
         writes, and the ranks wait for it."""
-        save_state(os.path.join(self.output_dir, name), self.state, self.generator)
-        if rank() == 0:
-            meta = {"best_metric": self.best_metric,
-                    "start_epoch": (epoch + 1) if epoch is not None else self.start_epoch}
-            with open(os.path.join(self.output_dir, f"{name}.meta.json"), "w") as f:
-                json.dump(meta, f)
-        barrier()
+        with trace.span("checkpoint", record=True):
+            save_state(os.path.join(self.output_dir, name), self.state, self.generator)
+            if rank() == 0:
+                meta = {"best_metric": self.best_metric,
+                        "start_epoch": (epoch + 1) if epoch is not None else self.start_epoch}
+                with open(os.path.join(self.output_dir, f"{name}.meta.json"), "w") as f:
+                    json.dump(meta, f)
+            barrier()
 
     def _epoch_mode(self) -> tuple[str, str]:
         """("graph" or "step", why). Graph, the JAX package's default
@@ -258,7 +283,7 @@ class Trainer:
             if os.path.exists(path):
                 # the optimizer's loaded state replaces the tensors a
                 # captured step holds: drop the graph, capture anew
-                self.graph = None
+                self._drop_graph("load")
                 restore_state(path, self.state, self.generator if train else None)
                 meta_path = os.path.join(ckpt_dir, f"{cand}.meta.json")
                 if os.path.exists(meta_path):
@@ -274,37 +299,61 @@ class Trainer:
     def _train_step(self, state: TrainState) -> None:
         """One train step, reading nothing on the host: the step's index row
         at the epoch position, its batch, the algorithm's step, its metrics
-        written at the position, the position advanced. The graph captures
-        exactly this."""
-        images, labels = self.pipeline.arrays("train")
-        idx = torch.index_select(self._epoch_idx, 0, self._pos.reshape(1))[0]
-        batch = self._batch_fn(images, labels, batch_slice(idx), self.generator)
-        _, metrics = self.algorithm.train_step(state, batch, self.generator)
-        for k, v in metrics.items():
-            if k not in self._metric_bufs:
-                self._metric_bufs[k] = torch.empty(self._epoch_idx.shape[0], dtype=v.dtype,
-                                                   device=self.device)
-            self._metric_bufs[k].index_copy_(0, self._pos.reshape(1), v.reshape(1))
-        self._pos.add_(1)
+        written at the position, the position advanced; its phases marked
+        (`utils/trace.py`). The graph captures exactly this."""
+        with trace.phases(self._stamps, self._pos):
+            trace.phase("views")
+            images, labels = self.pipeline.arrays("train")
+            idx = torch.index_select(self._epoch_idx, 0, self._pos.reshape(1))[0]
+            batch = self._batch_fn(images, labels, batch_slice(idx), self.generator)
+            trace.phase("forward")
+            _, metrics = self.algorithm.train_step(state, batch, self.generator)
+            for k, v in metrics.items():
+                if k not in self._metric_bufs:
+                    self._metric_bufs[k] = torch.empty(self._epoch_idx.shape[0], dtype=v.dtype,
+                                                       device=self.device)
+                self._metric_bufs[k].index_copy_(0, self._pos.reshape(1), v.reshape(1))
+            trace.phase("end")
+            self._pos.add_(1)
+
+    def _drop_graph(self, reason: str) -> None:
+        """Drops the captured step, if any, counting why
+        (`graph.drops.<reason>`): the next step captures anew."""
+        if self.graph is not None:
+            trace.count(f"graph.drops.{reason}")
+        self.graph = None
 
     def begin_epoch(self, idx_mat: torch.Tensor) -> None:
         """Puts the epoch's index matrix where the step reads it, at the
         first step."""
-        if self._epoch_idx is None or self._epoch_idx.shape != idx_mat.shape:
-            self.graph = None
-            self._epoch_idx = torch.empty_like(idx_mat)
-            self._metric_bufs = {}
-        self._epoch_idx.copy_(idx_mat)
-        self._pos.zero_()
+        with trace.span("begin_epoch", record=True):
+            if self._epoch_idx is None or self._epoch_idx.shape != idx_mat.shape:
+                self._drop_graph("shape")
+                self._epoch_idx = torch.empty_like(idx_mat)
+                self._metric_bufs = {}
+                if self.device.type == "cuda":
+                    self._stamps = torch.zeros((idx_mat.shape[0], len(trace.MARKS)),
+                                               dtype=torch.int64, device=self.device)
+            self._epoch_idx.copy_(idx_mat)
+            self._pos.zero_()
+            self._host_pos = 0
 
     def step(self, state: TrainState) -> None:
         """The next step of the epoch in the trainer's mode: eager, or a
         replay of the captured step (the first steps warm up and capture
-        it)."""
+        it). Under a profiler, a range `step <s>`."""
+        if trace.profiling():
+            with trace.span(f"step {self._host_pos}"):
+                self._step(state)
+        else:
+            self._step(state)
+        self._host_pos += 1
+
+    def _step(self, state: TrainState) -> None:
         if state.scheduler.reserve(state.step):
             # steps past the run's end (a profile after training) refilled
             # the schedule tables: the captured step reads the old ones
-            self.graph = None
+            self._drop_graph("refill")
         if self.epoch_mode == "step":
             self._train_step(state)
             return
@@ -314,20 +363,21 @@ class Trainer:
 
     def _run_epoch(self, state: TrainState, idx_mat: torch.Tensor):
         """All steps of one epoch. Returns (state, {metric: (steps,) host
-        tensor}, steady-state img/s or None off CUDA). Under `_trace` each
-        step is a span `step <s>`."""
+        tensor}, steady-state img/s or None off CUDA); the epoch's median
+        phases go to `phase_ms` (None off CUDA)."""
         cuda = self.device.type == "cuda"
         events = []
         self.begin_epoch(idx_mat)
-        for s in range(idx_mat.shape[0]):
-            with (torch.profiler.record_function(f"step {s}") if self._tracing
-                  else contextlib.nullcontext()):
-                self.step(state)
+        for _ in range(idx_mat.shape[0]):
+            self.step(state)
             if cuda:
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()
                 events.append(ev)
-        metrics = {k: v.cpu() for k, v in self._metric_bufs.items()}
+        with trace.span("end_epoch", record=True):
+            metrics = {k: v.cpu() for k, v in self._metric_bufs.items()}
+            stamps = None if self._stamps is None else self._stamps.cpu()
+        self.phase_ms = None if stamps is None else trace.phase_ms(stamps)
         steady = None
         if cuda and len(events) > STEADY_AFTER:
             events[-1].synchronize()
@@ -336,23 +386,26 @@ class Trainer:
         return state, metrics, steady
 
     def photometric_launches(self) -> int:
-        """The photometric kernel's launches so far: the wrapper's count,
-        and those the graph's replays made (`train/graph.py`)."""
-        return fused_photometric.launches + StepGraph.replayed_launches
+        """The photometric kernel's launches so far in the process, those
+        of the graph's replays included (the counter
+        `photometric.launches`)."""
+        return trace.counters.get("photometric.launches", 0)
 
     def epoch_indices(self) -> torch.Tensor:
         """The epoch's (steps, batch) index matrix: rank 0's draw, on every
         rank."""
-        idx_mat = self.pipeline.epoch_indices(self.generator)
-        broadcast_([idx_mat])
+        with trace.span("epoch_indices", record=True):
+            idx_mat = self.pipeline.epoch_indices(self.generator)
+            broadcast_([idx_mat])
         return idx_mat
 
     def _record(self, stats: dict) -> None:
-        """Appends an epoch's record to `<output_dir>/epoch_stats.jsonl`
-        (rank 0)."""
+        """Appends an epoch's record to `<output_dir>/epoch_stats.jsonl`, and
+        the recorded spans so far to `<output_dir>/spans.jsonl` (rank 0)."""
         if rank() == 0 and self.make_dirs:
             with open(os.path.join(self.output_dir, "epoch_stats.jsonl"), "a") as f:
                 f.write(json.dumps(stats) + "\n")
+            trace.write(os.path.join(self.output_dir, "spans.jsonl"))
 
     @contextlib.contextmanager
     def _trace(self, profile_dir: str, epoch: int):
@@ -367,11 +420,7 @@ class Trainer:
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as profiler:
             with record_function(f"epoch {epoch}"):
-                self._tracing = True
-                try:
-                    yield
-                finally:
-                    self._tracing = False
+                yield
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
         os.makedirs(profile_dir, exist_ok=True)
@@ -395,25 +444,26 @@ class Trainer:
         profile_dir = os.environ.get("SSV_TPU_PROFILE_DIR")
         profile_epoch = self.start_epoch + 1
         for epoch in range(self.start_epoch, self.epochs + 1):
-            state = self.algorithm.pre_epoch(state, self, epoch)
+            boundary = trace.position()
+            with trace.span("pre_epoch", record=True):
+                state = self.algorithm.pre_epoch(state, self, epoch)
             idx_mat = self.epoch_indices()
             launches = self.photometric_launches()
             tracing = bool(profile_dir) and epoch == profile_epoch
             with (self._trace(profile_dir, epoch) if tracing else contextlib.nullcontext()):
                 t0 = time.perf_counter()
                 state, metrics, steady = self._run_epoch(state, idx_mat)
-                state = self.algorithm.post_epoch(state, epoch)
+                with trace.span("post_epoch", record=True):
+                    state = self.algorithm.post_epoch(state, epoch)
                 dt = time.perf_counter() - t0
             self.state = state
             self.start_epoch = epoch + 1
             means = {k: float(v.mean()) for k, v in metrics.items()}
-            self.epoch_stats.append({
-                "epoch": epoch, "steps": idx_mat.shape[0],
-                "losses": metrics["loss"].tolist(), "seconds": dt,
-                "steady_img_per_s": steady,
-                "photometric_launches": self.photometric_launches() - launches,
-                "mode": self.epoch_mode})
-            self._record(self.epoch_stats[-1])
+            stats = {"epoch": epoch, "steps": idx_mat.shape[0],
+                     "losses": metrics["loss"].tolist(), "seconds": dt,
+                     "steady_img_per_s": steady,
+                     "photometric_launches": self.photometric_launches() - launches,
+                     "mode": self.epoch_mode, "phase_ms": self.phase_ms}
 
             ips = idx_mat.numel() / dt
             msg = (f"Epoch {epoch:4d}/{self.epochs:4d} "
@@ -421,13 +471,16 @@ class Trainer:
                    + f" [img/s] {ips:,.0f} [mode] {self.epoch_mode}")
             if steady is not None:
                 msg += f" [steady img/s] {steady:,.0f}"
+            if self.phase_ms is not None:
+                msg += " [phase ms] " + " ".join(f"{k} {v:.3f}" for k, v in self.phase_ms.items())
             self.logger.write(msg, mode="train")
             self.wandb.log({"Train loss": means.get("loss", 0.0),
                             "images_per_sec": ips, "Epoch": epoch,
                             **{k: v for k, v in means.items() if k != "loss"}})
 
             if epoch % self.eval_every == 0:
-                knn_acc = self.knn_validate()
+                with trace.span("knn_eval", record=True):
+                    knn_acc = self.knn_validate()
                 self.logger.record(
                     f"Epoch {epoch:4d}/{self.epochs:4d} [accuracy] {knn_acc:.4f}",
                     mode="val")
@@ -436,6 +489,11 @@ class Trainer:
                     self.best_metric = knn_acc
                     self.save_checkpoint("best_model", epoch=epoch)
                 self.save_checkpoint("latest", epoch=epoch)
+            # the record after the boundary's last span: its host seconds
+            stats["boundary_s"] = trace.seconds(BOUNDARY, trace.since(boundary))
+            stats["counters"] = dict(trace.counters)
+            self.epoch_stats.append(stats)
+            self._record(stats)
 
         self.state = state
         self.logger.print("Completed training. Beginning linear evaluation.",

@@ -16,6 +16,7 @@ from ssv_tpu.ops.pallas.photometric import fused_photometric as jax_fused
 from ssv_tpu_torch.ops.photometric import (_mod1, fused_photometric,
                                            photometric_reference,
                                            sample_photometric_params)
+from ssv_tpu_torch.utils import trace
 from torch_helpers import t
 
 torch.set_num_threads(2)
@@ -67,19 +68,19 @@ def test_reference_matches_jax_kernel(name):
 
 def test_cpu_tensor_takes_plain_version_without_launch():
     images, order, params = _case("random_16x32x32")
-    before = fused_photometric.launches
+    before = trace.counters.get("photometric.launches", 0)
     got = fused_photometric(t(images), t(order), t(params))
     want = photometric_reference(t(images), t(order), t(params))
     assert torch.equal(got, want)
-    assert fused_photometric.launches == before
+    assert trace.counters.get("photometric.launches", 0) == before
 
 
 def test_other_devices_raise_without_launch():
     images, order, params = (x.to("meta") for x in map(t, _case("odd_5x7x9")))
-    before = fused_photometric.launches
+    before = trace.counters.get("photometric.launches", 0)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_photometric(images, order, params)
-    assert fused_photometric.launches == before
+    assert trace.counters.get("photometric.launches", 0) == before
 
 
 def test_hue_wrap_floor_form_equals_fmod_form():
