@@ -8,7 +8,21 @@ Phase 2 holds each kernel against its plain PyTorch version on the card,
 at the main path's shapes and at odd ones, and times it at the main path's
 shape (the photometric kernel at batch 512, 32x32: warm in L2 and cold by
 CUDA events, and by the profiler), beside the plain version and the least
-time the card needs for the work. Then one float32 SimCLR step at a tiny
+time the card needs for the work. The ResNet stem's kernels (`ops/stem.py`)
+run through `stem_tail`'s autograd Function at 512 x 32 x 32 x 64 (one
+view of batch 512, the main path's call), 1,024 x 32 x 32 (both views),
+8 x 112 x 112, 3 x 7 x 9 (bf16) and 16 x 32 x 32 (float32): a training
+forward and backward, its pooled output and offsets bit for bit the plain
+version's from the same statistics, its statistics, gradients and running
+statistics within tolerance; a training forward without a gradient (no
+offsets, a target or key tower's) bit for bit the recorded one's, running
+statistics too; eval mode (KNN and the probe) bit for bit the plain
+version's from the running statistics. At 512 x 32 x 32 bf16 it counts
+how many pooled values and argmaxes differ from aten's composition (BN,
+ReLU, max-pool), which rounds y from statistics of its own. Timed at batch
+1,024 and 512 by events and by the profiler (each kernel), beside the
+plain version, the least time their bytes need, and aten's composition
+(what the port ran before, `library_ms`). Then one float32 SimCLR step at a tiny
 size on the card is held against the same step on the CPU, the path the
 tests hold against the JAX package, on a two-stage BasicBlock ResNet, a
 two-stage Bottleneck ResNet with 4 groups of width 4, and the TinyEncoder.
@@ -152,7 +166,11 @@ PROBE_EPOCHS epochs (phase 3 keeps the shipped 100).
 Every training phase checks the photometric launches per train step (two,
 a graph replay counted as the launches its capture recorded;
 one for SeLA's single augmented view; DeepCluster builds and pays for the
-`aug_2` it never reads), prints its steady img/s and its peak
+`aug_2` it never reads), and, where its Trainer runs in this process
+(not the quality runner's, the sweep's, the bench's or the ranks'), the
+stem kernels' launches per train step (STEM_LAUNCHES_PER_STEP on a ResNet,
+none on the ViT or `tiny`): the epoch records' `stem_launches`, or the
+counter around `Trainer._run_epoch`. It prints its steady img/s and its peak
 memory above what it inherited, and checks that what each run inherits stays
 within 64 MiB of what the first run inherited. Each phase prints its
 seconds (`[time]`). Any failure raises; the line before the last holds the
@@ -161,6 +179,7 @@ kernels' numbers, the last line the JSON result.
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -172,6 +191,7 @@ import tempfile
 import time
 
 import torch
+import torch.nn.functional as F
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-5          # kernel against plain version, max abs diff (float32)
@@ -181,6 +201,20 @@ HELD_SLACK = 64 << 20   # bytes a run may inherit beyond what the first run did
 LAUNCHES_PER_STEP = {"simclr": 2, "byol": 2, "simsiam": 2, "relic": 2, "barlow": 2,
                      "moco": 2, "swav": 2, "sela": 1, "dino": 2, "pirl": 2,
                      "deep_cluster": 2}
+# stem launches per train step on a ResNet: each backbone call with a
+# gradient 6 (statistics, merge, normalise-pool; reduce, merge, elementwise),
+# each without one (a target or key tower under no_grad) 3; the views run
+# one at a time
+STEM_LAUNCHES_PER_STEP = {"simclr": 12, "byol": 18, "simsiam": 12, "relic": 24,
+                          "barlow": 12, "moco": 9, "swav": 12, "sela": 6, "dino": 0,
+                          "pirl": 12, "deep_cluster": 6}
+STEM_SHAPES = ((512, 32, 32, torch.bfloat16), (1024, 32, 32, torch.bfloat16),
+               (8, 112, 112, torch.bfloat16), (3, 7, 9, torch.bfloat16),
+               (16, 32, 32, torch.float32))
+# the most of the pooled values, and of the argmaxes, that may differ from
+# aten's composition at the main path's call (a y rounded the other way)
+STEM_ATEN_SHARE = 1e-3
+STEM_TIMED_BATCHES = (1024, 512)   # both views of batch 512 at once, and one view
 BF16_FLOPS = 989e12   # H100 SXM dense bf16 peak (NVIDIA data sheet, at 700 W)
 # the batches the paths give the kernel: 512 (SimCLR, BYOL, SimSiam, ReLIC,
 # Barlow, SwAV, DeepCluster), 256 (MoCo, PIRL, the sweep), 500 (SeLA), 64
@@ -212,7 +246,7 @@ def phase_env() -> str:
 def phase_build() -> None:
     from ssv_tpu_torch.ops import build
 
-    for name in ("photometric", "phase_mark"):
+    for name in ("photometric", "phase_mark", "stem"):
         t0 = time.perf_counter()
         path = build.build(name)
         build.load(name)
@@ -259,7 +293,172 @@ def phase_kernels(card: str) -> list[dict]:
              "ms_cold": main["ms_cold"], "ms_profiler": main["ms_profiler"],
              "bound_share_profiler": share(main["ms_profiler"]),
              "bound_share_cold": share(main["ms_cold"]), "by_batch": by_batch,
-             "card": card}]
+             "card": card},
+            _stem_kernels(card)]
+
+
+STEM_KERNELS = ("stem_bn_fw_stats", "stem_bn_fw_merge", "stem_bn_fw_relu_max",
+                "stem_bn_bw_reduce", "stem_bn_bw_merge", "stem_bn_bw_elemt")
+
+
+def _stem_inputs(N: int, H: int, W: int, dtype, g):
+    """A channels-last conv output, its stem BN (random affine and running
+    statistics) and a pooled gradient, from the generator `g`."""
+    from ssv_tpu_torch.models.resnet import BatchNorm2d
+
+    C = 64
+    x = (0.5 + 1.5 * torch.randn(N, H, W, C, device="cuda", generator=g)).to(dtype)
+    bn = BatchNorm2d(C).cuda()
+    with torch.no_grad():
+        bn.weight.copy_(1 + 0.3 * torch.randn(C, device="cuda", generator=g))
+        bn.bias.copy_(0.2 * torch.randn(C, device="cuda", generator=g))
+    gy = torch.randn(N, (H - 1) // 2 + 1, (W - 1) // 2 + 1, C, device="cuda", generator=g)
+    return x.permute(0, 3, 1, 2), bn, gy.to(dtype).permute(0, 3, 1, 2)
+
+
+def _stem_kernels(card: str) -> dict:
+    """The stem's kernels against their plain versions (the module
+    docstring's phase 2), then timed."""
+    from ssv_tpu_torch.ops import stem as S
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    errs = {"stats": 0.0, "dx": 0.0, "dw_db": 0.0, "running": 0.0}
+    for N, H, W, dtype in STEM_SHAPES:
+        x, bn, gy = _stem_inputs(N, H, W, dtype, g)
+        bn_ng, bn_old = copy.deepcopy(bn), copy.deepcopy(bn)
+        launches = _stem_launches()
+        xg = x.clone().requires_grad_()
+        out = S.stem_tail(xg, bn)
+        _, idx, stats, _ = out.grad_fn.saved_tensors
+        dx, dw, db = torch.autograd.grad(out, (xg, bn.weight, bn.bias), gy)
+        with torch.no_grad():
+            out_ng = S.stem_tail(x, bn_ng)         # training, no offsets
+            want = S.plain_stats(x, bn_old)
+            # aten's composition (`stem_reference` with aten's indices)
+            ref, ind = F.max_pool2d(F.relu(bn_old(x)), 3, 2, 1, return_indices=True)
+        y, out_ref, ind_ref = S.plain_tail(x, stats)
+        dx_ref, dw_ref, db_ref = S.plain_backward(x, y, gy, stats, bn.weight)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, out_ref) and torch.equal(S.flat_indices(idx, W), ind_ref)):
+            raise AssertionError(f"stem kernels: the pooled output or offsets differ from the "
+                                 f"plain version's at {N}x{H}x{W} {dtype}")
+        if not (torch.equal(out_ng, out) and all(
+                torch.equal(getattr(bn_ng, k), getattr(bn, k))
+                for k in ("running_mean", "running_var", "num_batches_tracked"))):
+            raise AssertionError(f"stem kernels: the training forward without a gradient "
+                                 f"differs from the recorded one at {N}x{H}x{W} {dtype}")
+        err = {"stats": ((stats - want).abs() / want.abs().clamp(min=1e-3)).max().item(),
+               "dx": ((dx.float() - dx_ref.float()).abs().max()
+                      / dx_ref.float().abs().max()).item(),
+               "dw_db": max(((dw - dw_ref).abs().max() / dw_ref.abs().max()).item(),
+                            ((db - db_ref).abs().max() / db_ref.abs().max()).item()),
+               "running": max(((getattr(bn, k) - getattr(bn_old, k)).abs()
+                               / getattr(bn_old, k).abs().clamp(min=1e-3)).max().item()
+                              for k in ("running_mean", "running_var"))}
+        bn.eval()
+        with torch.no_grad():
+            out_e = S.stem_tail(x, bn)
+            _, _, stats_e = S._forward(x, bn, with_idx=False)
+            want_e = S.plain_stats(x, bn)
+        eval_err = ((stats_e - want_e).abs() / want_e.abs().clamp(min=1e-3)).max().item()
+        if not (torch.equal(out_e, S.plain_tail(x, stats_e)[1]) and eval_err <= 1e-6
+                and int(bn.num_batches_tracked) == 1):
+            raise AssertionError(f"stem kernels: eval mode differs from the plain version at "
+                                 f"{N}x{H}x{W} {dtype} (statistics {eval_err:.2e})")
+        launched = _stem_launches() - launches
+        if launched != 6 + 3 + 2 + 2:
+            raise AssertionError(f"stem kernels: {launched} launches for a training forward "
+                                 f"and backward, one without a gradient and two in eval mode")
+        print(f"[kernel] stem {N}x{H}x{W}x64 {str(dtype)[6:]} through stem_tail: output and "
+              f"offsets bit for bit the plain version's, training without a gradient bit for "
+              f"bit the recorded forward, eval bit for bit the plain version's (statistics "
+              f"{eval_err:.2e}); relative error stats {err['stats']:.2e}, dx {err['dx']:.2e}, "
+              f"dweight/dbias {err['dw_db']:.2e}, running statistics {err['running']:.2e}")
+        limits = {"stats": 1e-4, "dx": 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5,
+                  "dw_db": 1e-4, "running": 1e-5}
+        for k, v in err.items():
+            if not v <= limits[k]:
+                raise AssertionError(f"stem kernels disagree at {N}x{H}x{W}: {k} {v} > "
+                                     f"{limits[k]}")
+            errs[k] = max(errs[k], v)
+        if (N, dtype) == (512, torch.bfloat16):
+            errs.update(_stem_against_aten(out, idx, ref, ind, tuple(x.shape), card))
+        del x, xg, gy, out, out_ng, idx, dx, dx_ref, y, out_ref, ind_ref, out_e, ref, ind
+    by_batch = [_time_stem(B, g, card) for B in STEM_TIMED_BATCHES]
+    main = by_batch[0]
+    return {"name": "stem_tail", "route": "cuda", "source": "ssv_tpu_torch/csrc/stem.cu",
+            "replaces": None, "max_rel_err": errs, "ms": main["ms"],
+            "ms_profiler": main["ms_profiler"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["library_ms"],
+            "bound_share_profiler": main["bound_share_profiler"], "by_batch": by_batch,
+            "card": card}
+
+
+def _stem_against_aten(out, idx, ref, ind, shape, card: str) -> dict:
+    """The share of the kernels' pooled values `out` and of their argmaxes
+    (offsets `idx`) that differ from aten's composition's `ref` and `ind`
+    on the same input of `shape` (N, C, H, W), and by how many bf16 steps
+    of the value at most."""
+    from ssv_tpu_torch.ops import stem as S
+
+    N, C, H, W = shape
+    value = (out != ref).float().mean().item()
+    argmax = (S.flat_indices(idx, W) != ind).float().mean().item()
+    floor = 2.0 ** -20 * ref.float().abs().max()
+    steps = ((out.float() - ref.float()).abs()
+             / (ref.float().abs() * 2.0 ** -7).clamp(min=floor)).max().item()
+    print(f"[kernel] stem {N}x{H}x{W}x{C} against aten's composition: {value:.3e} "
+          f"of the pooled values differ (by up to {steps:.3f} bf16 steps of the value), "
+          f"{argmax:.3e} of the argmaxes (limit {STEM_ATEN_SHARE:g} each) | {card}")
+    if not (value <= STEM_ATEN_SHARE and argmax <= STEM_ATEN_SHARE and steps <= 1.0):
+        raise AssertionError(f"stem kernels against aten's composition: values {value}, "
+                             f"argmaxes {argmax}, {steps} steps")
+    return {"values_vs_aten": value, "argmax_vs_aten": argmax}
+
+
+def _time_stem(B: int, g, card: str) -> dict:
+    """A training forward and backward through the stem's kernels at batch
+    B, 32x32x64 bf16 (warm in L2), by events and by the profiler, beside the
+    plain version, the least time the bytes need and aten's composition."""
+    from ssv_tpu_torch.ops import stem as S
+    from ssv_tpu_torch.tools.measure import HBM_BYTES_PER_S, profiled_ms, times_ms
+
+    x, bn, gy = _stem_inputs(B, 32, 32, torch.bfloat16, g)
+    x.requires_grad_()
+    _, lib_bn, _ = _stem_inputs(1, 1, 1, torch.bfloat16, g)
+
+    def run():
+        return torch.autograd.grad(S.stem_tail(x, bn), (x, bn.weight, bn.bias), gy)
+
+    def plain():
+        stats = S.plain_stats(x.detach(), bn)
+        y, _, _ = S.plain_tail(x.detach(), stats)
+        return S.plain_backward(x.detach(), y, gy, stats, bn.weight)
+
+    def library():
+        out = S.stem_reference(x, lib_bn)
+        return torch.autograd.grad(out, (x, lib_bn.weight, lib_bn.bias), gy)
+
+    ms = statistics.median(times_ms(run))
+    per_kernel = profiled_ms({"kernel": run}, {k: k for k in STEM_KERNELS})
+    ms_profiler = (sum(per_kernel.values()) if all(v is not None for v in per_kernel.values())
+                   else None)
+    plain_ms = statistics.median(times_ms(plain))
+    library_ms = statistics.median(times_ms(library))
+    nbytes = S.stem_bytes(x)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    share = bound_ms / ms_profiler if ms_profiler else None
+    print(f"[kernel] stem bound B={B} 32x32x64 bf16: {nbytes:,} bytes -> "
+          f"{bound_ms * 1e3:.3f} us, bound by bytes")
+    print(f"[kernel] stem B={B}: forward and backward event median {ms:.4f} ms; profiler "
+          + (" + ".join(f"{k[8:]} {v * 1e3:.2f}" for k, v in per_kernel.items())
+             + f" = {ms_profiler * 1e3:.2f} us, {share:.3f} of the bound"
+             if ms_profiler else "saw no device time")
+          + f"; plain version {plain_ms:.4f} ms; aten's composition {library_ms:.4f} ms | {card}")
+    return {"batch": B, "ms": ms, "ms_profiler": ms_profiler, "per_kernel_ms": per_kernel,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bytes": nbytes, "bound_share_profiler": share}
 
 
 def _time_photometric(B: int, g, card: str) -> dict:
@@ -494,10 +693,12 @@ def _gib(nbytes: int) -> str:
 
 
 def _reset_launches() -> None:
-    """The count of photometric launches (`utils/trace.py`) to 0."""
+    """The counts of kernel launches (`utils/trace.py`'s `LAUNCHES`:
+    photometric and stem) to 0."""
     from ssv_tpu_torch.utils import trace
 
-    trace.counters["photometric.launches"] = 0
+    for name in trace.LAUNCHES:
+        trace.counters[name] = 0
 
 
 def _launches() -> int:
@@ -509,11 +710,39 @@ def _launches() -> int:
     return trace.counters.get("photometric.launches", 0)
 
 
+def _stem_launches() -> int:
+    """The stem kernels' launches since `_reset_launches`, counted as the
+    photometric kernel's are; eval's (KNN, the probe) included."""
+    from ssv_tpu_torch.utils import trace
+
+    return trace.counters.get("stem.launches", 0)
+
+
 def _check_launches(name: str, launches: int, steps: int) -> None:
     want = LAUNCHES_PER_STEP[name] * steps
     if launches != want:
         raise AssertionError(f"{name}: photometric kernel launched {launches} times "
                              f"for {steps} train steps, expected {want}")
+
+
+def _check_stem(name: str, model, launches: int, steps: int) -> int:
+    """The stem kernels' `launches` in `steps` train steps of `model`:
+    STEM_LAUNCHES_PER_STEP a step on a ResNet, none without one."""
+    from ssv_tpu_torch.models.resnet import ResNet
+
+    resnet = any(isinstance(m, ResNet) for m in model.modules())
+    want = STEM_LAUNCHES_PER_STEP[name] * steps if resnet else 0
+    if launches != want:
+        raise AssertionError(f"{name}: stem kernels launched {launches} times in {steps} "
+                             f"train steps, expected {want}")
+    return launches
+
+
+def _epoch_stem(name: str, model, stats: list[dict]) -> int:
+    """`_check_stem` over the epoch records `stats` (`stem_launches`: the
+    epoch's steps', not its KNN eval's)."""
+    return _check_stem(name, model, sum(e["stem_launches"] for e in stats),
+                       sum(e["steps"] for e in stats))
 
 
 def _check_probe(name: str, trainer, card: str) -> dict:
@@ -612,6 +841,7 @@ def phase_slice(card: str) -> dict:
     stats = trainer.epoch_stats[-1]
     steps = stats["steps"]
     _check_launches("simclr", launches, steps)
+    stem = _epoch_stem("simclr", trainer.state.model, [stats])
     losses = _check_losses("simclr", [stats])
     acc = trainer.best_metric
     if not 0.0 <= acc <= 1.0:
@@ -622,7 +852,7 @@ def phase_slice(card: str) -> dict:
           f"(steps {STEADY_AFTER + 1}-{steps}), peak memory {_gib(peak)} above the "
           f"{_gib(held)} held before | {card}")
     probe = _check_probe("simclr", trainer, card)
-    return {"launches": launches, "steps": steps, "knn_accuracy": acc,
+    return {"launches": launches, "stem_launches": stem, "steps": steps, "knn_accuracy": acc,
             "img_per_s": stats["steady_img_per_s"], "peak_bytes": peak, "held_bytes": held,
             "linear_eval": probe, "losses": losses}
 
@@ -632,8 +862,6 @@ def _train_gflop_per_view(model, algorithm, batch: int = 8) -> tuple[float, floa
     the card, in the algorithm's autocast), forward and forward plus
     backward, as torch.utils.flop_counter counts the matmuls and
     convolutions."""
-    import copy
-
     from torch.utils.flop_counter import FlopCounterMode
 
     model = copy.deepcopy(model).train()
@@ -700,6 +928,8 @@ def _one_epoch(trainer) -> dict:
     return {"losses": metrics["loss"].tolist(), "tensors": tensors, "step": state.step,
             "counter": int(state.counter), "generator": trainer.generator.get_state(),
             "mode": trainer.epoch_mode, "launches": _launches(),
+            "stem": _check_stem(trainer.algorithm.name, state.model, _stem_launches(),
+                                state.step),
             "graph": None if graph is None else {
                 "captured_launches": graph.launches, "replays": graph.replays,
                 "capture_s": trace.last_seconds("graph.capture"),
@@ -751,14 +981,17 @@ def _graph_agreement(name: str, arch: str, batch: int, extra: dict) -> dict:
           f"difference {loss_diff:.3e}), state {state_diff:.3e} (tolerance 0: bit for bit), "
           f"generator state after {'equal' if torch.equal(eager['generator'], graph['generator']) else 'differs'}; "
           f"capture {g['capture_s']:.3f} s, pool {_gib(g['pool_bytes'])}, "
-          f"{g['captured_launches']} photometric launches captured, {graph['launches']} in all")
+          f"{g['captured_launches']['photometric.launches']} photometric and "
+          f"{g['captured_launches']['stem.launches']} stem launches captured, "
+          f"{graph['launches']} and {graph['stem']} in all")
     if not same:
         raise AssertionError(f"graph {name}: the replays differ from the eager steps")
     if graph["launches"] != want or eager["launches"] != want:
         raise AssertionError(f"graph {name}: {graph['launches']} and {eager['launches']} "
                              f"photometric launches for {steps} steps, expected {want}")
     return {"loss_diff": loss_diff, "state_diff": state_diff, "steps": steps,
-            "launches": graph["launches"] + eager["launches"], **g}
+            "launches": graph["launches"] + eager["launches"],
+            "stem_launches": graph["stem"] + eager["stem"], **g}
 
 
 def _graph_views(card: str) -> None:
@@ -837,18 +1070,19 @@ def phase_graph(card: str) -> dict:
     from ssv_tpu_torch.tools.step_profile import profile_modes
 
     out = {"agreement": {}}
-    launches = 0
+    launches = stem = 0
     for name, arch, batch, extra in GRAPH_ROWS:
         row = _graph_agreement(name, arch, batch, extra)
         out["agreement"][name] = row
         launches += row["launches"]
+        stem += row["stem_launches"]
     _graph_views(card)
     out["speed"] = profile_modes(os.path.join(HERE, "configs", "simclr.yaml"), "resnet18",
                                  "simclr")
     means = out["speed"]["means"]
     if not means["graph"]["img_per_s"] > means["step"]["img_per_s"]:
         print("[graph] graph mode was not faster than step mode in this call")
-    out["launches"] = launches
+    out["launches"], out["stem_launches"] = launches, stem
     return out
 
 
@@ -938,6 +1172,7 @@ def phase_resnet50(card: str) -> dict:
         stats = trainer.epoch_stats[-1]
         steps = stats["steps"]
         _check_launches("simclr", launches, steps)
+        stem = _epoch_stem("simclr", trainer.state.model, [stats])
         losses = _check_losses("simclr resnet50", [stats])
         fwd, both = _train_gflop_per_view(trainer.state.model, trainer.algorithm)
         img_s = stats["steady_img_per_s"]
@@ -957,8 +1192,8 @@ def phase_resnet50(card: str) -> dict:
         lin = cli.main([*argv, "-t", "linear_eval", "-o", os.path.join(tmp, "lin"), "-l", run])
         lin_probe = _check_probe("simclr resnet50 -t linear_eval", lin, card)
         del lin
-    return {"launches": launches, "steps": steps, "img_per_s": img_s, "mfu": mfu,
-            "gflop_per_view": [fwd, both], "peak_bytes": peak, "held_bytes": [held, lin_held],
+    return {"launches": launches, "stem_launches": stem, "steps": steps, "img_per_s": img_s,
+            "mfu": mfu, "gflop_per_view": [fwd, both], "peak_bytes": peak, "held_bytes": [held, lin_held],
             "linear_eval": probe, "linear_eval_task": lin_probe,
             "device_ops_per_step": profile["device_ops_per_step"],
             "device_busy_share": profile["device_busy_share"]}
@@ -987,13 +1222,14 @@ def phase_bottleneck_family(card: str) -> dict:
             idx_mat = trainer.pipeline.epoch_indices(trainer.generator)[:10]
             _reset_launches()
             state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
-            launches = _launches()
+            launches, stem = _launches(), _stem_launches()
             _check_mode(arch, trainer.epoch_mode)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - held
             fwd, _ = _train_gflop_per_view(state.model, trainer.algorithm)
         losses = metrics["loss"].tolist()
         _check_launches("simclr", launches, state.step)
+        _check_stem("simclr", state.model, stem, state.step)
         if state.step != 10 or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{arch}: {state.step} steps, losses {losses}")
         print(f"[bottleneck] simclr {arch} batch {trainer.pipeline.batch_size}: 10 steps, loss "
@@ -1001,7 +1237,8 @@ def phase_bottleneck_family(card: str) -> dict:
               f"{STEADY_AFTER + 1}-10), {fwd:.4f} GFLOP forward a view; peak memory "
               f"{_gib(peak)} above the {_gib(held)} held before; {launches} photometric "
               f"launches | {card}")
-        out[arch] = {"launches": launches, "steps": state.step, "img_per_s": steady,
+        out[arch] = {"launches": launches, "stem_launches": stem, "steps": state.step,
+                     "img_per_s": steady,
                      "peak_bytes": peak, "held_bytes": held, "gflop_forward": fwd}
         del trainer, state, metrics, idx_mat
     return out
@@ -1104,12 +1341,13 @@ def phase_transforms(card: str) -> dict:
         idx_mat = trainer.pipeline.epoch_indices(trainer.generator)[:10]
         _reset_launches()
         state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
-        launches = _launches()
+        launches, stem = _launches(), _stem_launches()
         _check_mode("transforms", trainer.epoch_mode)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - held
         losses = metrics["loss"].tolist()
         _check_launches("simclr", launches, state.step)
+        _check_stem("simclr", state.model, stem, state.step)
         if state.step != 10 or not all(map(math.isfinite, losses)):
             raise AssertionError(f"transforms: {state.step} steps, losses {losses}")
         print(f"[transforms] simclr resnet18 batch {trainer.pipeline.batch_size} with "
@@ -1118,7 +1356,8 @@ def phase_transforms(card: str) -> dict:
               f"memory {_gib(peak)} above the {_gib(held)} held before; {launches} "
               f"photometric launches | {card}")
         del trainer, state, metrics, idx_mat
-    return {"launches": launches, "img_per_s": steady, "peak_bytes": peak, "ops": ops}
+    return {"launches": launches, "stem_launches": stem, "img_per_s": steady,
+            "peak_bytes": peak, "ops": ops}
 
 
 class Interrupt(Exception):
@@ -1195,6 +1434,7 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
     stats = first["stats"] + resumed.epoch_stats
     steps = resumed.state.step
     _check_launches(name, launches, steps)
+    stem = _epoch_stem(name, resumed.state.model, stats)
     if [e["epoch"] for e in stats] != [1, 2] or steps != sum(e["steps"] for e in stats):
         raise AssertionError(f"{name}: epochs {[e['epoch'] for e in stats]}, {steps} steps")
     losses = _check_losses(name, stats)
@@ -1209,7 +1449,8 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
           f"and {_gib(peak)} (resume, epoch 2, KNN, the probe); {launches} photometric "
           f"launches for {steps} steps ({launches / steps:g} a step) | {card}")
     probe = _check_probe(f"{name} train", resumed, card)
-    return {"launches": launches, "steps": steps, "peak_bytes": [first_peak, peak],
+    return {"launches": launches, "stem_launches": stem, "steps": steps,
+            "peak_bytes": [first_peak, peak],
             "held_bytes": held, "img_per_s": [e["steady_img_per_s"] for e in stats],
             "linear_eval": probe, "argv": argv, "run": run, "resumed": resumed,
             "at_start": first.get("at_start"), "at_stop": first.get("at_stop"),
@@ -1266,12 +1507,13 @@ def phase_family(card: str) -> dict:
             before = [p.detach().clone() for p in target.parameters()] if target else []
             _reset_launches()
             state, metrics, steady = trainer._run_epoch(trainer.state, idx_mat)
-            launches = _launches()
+            launches, stem = _launches(), _stem_launches()
             _check_mode(name, trainer.epoch_mode)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() - held
         losses = metrics["loss"].tolist()
         _check_launches(name, launches, state.step)
+        _check_stem(name, state.model, stem, state.step)
         if state.step != 10 or not all(map(math.isfinite, losses)):
             raise AssertionError(f"{name}: {state.step} steps, losses {losses}")
         moved = None
@@ -1286,8 +1528,8 @@ def phase_family(card: str) -> dict:
               + f"; {steady:.1f} img/s (steps {STEADY_AFTER + 1}-10), peak memory "
               f"{_gib(peak)} above the {_gib(held)} held before; {launches} photometric "
               f"launches | {card}")
-        out[name] = {"launches": launches, "steps": state.step, "img_per_s": steady,
-                     "peak_bytes": peak, "held_bytes": held}
+        out[name] = {"launches": launches, "stem_launches": stem, "steps": state.step,
+                     "img_per_s": steady, "peak_bytes": peak, "held_bytes": held}
         del trainer, state, target, before, metrics, idx_mat
     return out
 
@@ -1350,6 +1592,7 @@ def phase_swav(card: str) -> dict:
     stats = trainer.epoch_stats
     steps = trainer.state.step
     _check_launches("swav", launches, steps)
+    stem = _epoch_stem("swav", trainer.state.model, stats)
     losses = _check_losses("swav", stats)
     if seen.get("zero_rows") != 0 or seen.get("launches") != 0:
         raise AssertionError(f"swav: after pre_train {seen}")
@@ -1362,8 +1605,8 @@ def phase_swav(card: str) -> dict:
           f"{STEADY_AFTER + 1}-{steps}), peak memory {_gib(peak)} above the {_gib(held)} "
           f"held before; {launches} photometric launches | {card}")
     probe = _check_probe("swav", trainer, card)
-    return {"launches": launches, "steps": steps, "img_per_s": stats[0]["steady_img_per_s"],
-            "peak_bytes": peak, "held_bytes": held, "pre_train_seconds": seen["seconds"],
+    return {"launches": launches, "stem_launches": stem, "steps": steps,
+            "img_per_s": stats[0]["steady_img_per_s"], "peak_bytes": peak, "held_bytes": held, "pre_train_seconds": seen["seconds"],
             "linear_eval": probe}
 
 
@@ -1411,6 +1654,7 @@ def phase_sela(card: str) -> dict:
     stats = trainer.epoch_stats
     steps = trainer.state.step
     _check_launches("sela", launches, steps)
+    stem = _epoch_stem("sela", trainer.state.model, stats)
     losses = _check_losses("sela", stats)
     sl = trainer.state.extra["self_label"]
     clusters, best_head = int(sl.pseudo_labels.unique().numel()), int(sl.best_head)
@@ -1431,7 +1675,7 @@ def phase_sela(card: str) -> dict:
           f"the end of each; peak memory {_gib(peak)} above the {_gib(held)} held before; "
           f"{launches} photometric launches for {steps} steps | {card}")
     probe = _check_probe("sela", trainer, card)
-    return {"launches": launches, "steps": steps,
+    return {"launches": launches, "stem_launches": stem, "steps": steps,
             "img_per_s": [e["steady_img_per_s"] for e in stats], "peak_bytes": peak,
             "held_bytes": held, "sweeps": sweeps, "clusters": clusters,
             "best_head": best_head, "linear_eval": probe, "trace": trace}
@@ -1923,6 +2167,7 @@ def phase_cifar(card: str) -> dict:
     stats = trainer.epoch_stats[-1]
     steps = stats["steps"]
     _check_launches("simclr", launches, steps)
+    stem = _epoch_stem("simclr", trainer.state.model, [stats])
     losses = _check_losses("cifar", [stats])
     print(f"[cifar] fetch_cifar --from a {CIFAR_SIZES[0]:,} + {CIFAR_SIZES[1]:,}-image "
           f"tarball in its own process: {stage_s:.1f} s, .raw cache written; the pickles "
@@ -1934,8 +2179,8 @@ def phase_cifar(card: str) -> dict:
           f"{launches} photometric launches, peak memory {_gib(peak)} above the "
           f"{_gib(held)} held before | {card}")
     probe = _check_probe("cifar", trainer, card)
-    return {"launches": launches, "steps": steps, "stage_s": stage_s, "train_s": train_s,
-            "linear_eval": probe}
+    return {"launches": launches, "stem_launches": stem, "steps": steps, "stage_s": stage_s,
+            "train_s": train_s, "linear_eval": probe}
 
 
 # the sweep's rows here: 2 epochs on half the tool's train split (5,120 /
@@ -2559,16 +2804,26 @@ def main() -> None:
     _timed("build", phase_build)
     kernels = _timed("kernels", phase_kernels, card)
     _timed("small steps", phase_small_steps, ["simclr", "simclr-bottleneck", "simclr-tiny"])
-    slice_out = _timed("simclr", phase_slice, card)
-    paths_graph = _timed("graph", phase_graph, card)["launches"]
-    paths = {"simclr": slice_out["launches"], "graph": paths_graph,
-             "bench": _timed("bench", phase_bench, card)["launches"],
-             "simclr-resnet50": _timed("resnet50", phase_resnet50, card)["launches"]}
-    paths.update({f"simclr-{k}": v["launches"] for k, v in
-                  _timed("bottleneck family", phase_bottleneck_family, card).items()})
-    paths["transforms"] = _timed("transforms", phase_transforms, card)["launches"]
-    paths["byol"] = _timed("byol", phase_byol, card)["launches"]
-    paths.update({k: v["launches"] for k, v in _timed("family", phase_family, card).items()})
+    # each path's checked launches: the photometric kernel's, and the stem
+    # kernels' where the path's train steps ran in this process
+    paths, stem = {}, {}
+
+    def tally(path: str, out: dict) -> dict:
+        paths[path] = out["launches"]
+        if "stem_launches" in out:
+            stem[path] = out["stem_launches"]
+        return out
+
+    slice_out = tally("simclr", _timed("simclr", phase_slice, card))
+    tally("graph", _timed("graph", phase_graph, card))
+    tally("bench", _timed("bench", phase_bench, card))
+    tally("simclr-resnet50", _timed("resnet50", phase_resnet50, card))
+    for k, v in _timed("bottleneck family", phase_bottleneck_family, card).items():
+        tally(f"simclr-{k}", v)
+    tally("transforms", _timed("transforms", phase_transforms, card))
+    tally("byol", _timed("byol", phase_byol, card))
+    for k, v in _timed("family", phase_family, card).items():
+        tally(k, v)
     _timed("small steps", phase_small_steps,
            ["byol", "simsiam", "simsiam-frozen", "relic", "barlow", "moco", "swav", "sela",
             "dino", "dino-resnet", "pirl", "deep_cluster"])
@@ -2576,12 +2831,12 @@ def main() -> None:
     for name, phase in (("moco", phase_moco), ("swav", phase_swav), ("sela", phase_sela),
                         ("dino", phase_dino), ("pirl", phase_pirl),
                         ("deep_cluster", phase_deep_cluster)):
-        paths[name] = _timed(name, phase, card)["launches"]
+        tally(name, _timed(name, phase, card))
     quality = _timed("quality", phase_quality, card)
     paths.update({"quality": quality["main"]["launches"],
                   "quality-nan": quality["nan"]["launches"],
                   "quality-shapes100": quality["shapes100"]["launches"]})
-    paths["cifar"] = _timed("cifar", phase_cifar, card)["launches"]
+    tally("cifar", _timed("cifar", phase_cifar, card))
     paths["sweep"] = _timed("sweep", phase_sweep, card)["launches"]
     ddp = _timed("ddp", phase_ddp, card, slice_out)
     paths["ddp-torchrun"] = ddp["a"]["launches"]
@@ -2594,6 +2849,8 @@ def main() -> None:
     print(f"[smoke] every phase passed in {time.perf_counter() - t0:.1f} s | {card}")
     kernels[0]["launches"] = sum(paths.values())
     kernels[0]["launches_by_path"] = paths
+    kernels[1]["launches"] = sum(stem.values())
+    kernels[1]["launches_by_path"] = stem
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

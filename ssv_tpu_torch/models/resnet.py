@@ -7,7 +7,9 @@ fan-out normal init and optional zero-init residual (the last BN of each
 block starts at 0).
 The public forward takes the JAX package's NHWC layout and returns pooled,
 flattened float32 features with no classifier head. Inside, an NHWC tensor
-is viewed as channels-last NCHW (`permute`, no copy) for cuDNN.
+is viewed as channels-last NCHW (`permute`, no copy) for cuDNN. The stem's
+tail, max-pool 3x3/s2 of ReLU of `bn1`, is `ops/stem.py`'s `stem_tail`:
+hand-written kernels on the card, the plain composition on the CPU.
 
 Mixed precision is the caller's `torch.autocast` (bf16 compute, f32 params,
 f32 BN statistics), as `dtype=bfloat16` is in the flax module, unless the
@@ -23,6 +25,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops.stem import stem_tail
 from ..parallel.mesh import data_size
 from ..parallel.per_device import all_reduce_sum
 
@@ -166,8 +169,6 @@ class ResNet(nn.Module):
         else:
             self.conv1 = _conv(3, 64, 7, 2, 3)
         self.bn1 = BatchNorm2d(64)
-        self.relu = nn.ReLU(inplace=True)
-        self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         in_planes = 64
         for stage, n_blocks in enumerate(stage_sizes):
             planes = 64 * 2 ** stage
@@ -191,7 +192,7 @@ class ResNet(nn.Module):
 
     def _features(self, x):
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels-last in memory
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = stem_tail(self.conv1(x), self.bn1)  # maxpool(relu(bn1(.))), fused on the card
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
         return x.mean(dim=(2, 3)).float()

@@ -69,7 +69,7 @@ ANNOTATIONS = ("Optimizer.step#", "Optimizer.zero_grad#", "ProfilerStep#")
 KINDS = (("photometric kernel", ("photometric_kernel",)),
          ("collectives", ("nccl",)),
          ("matmul and conv", ("gemm", "xmma", "nvjet", "cutlass", "conv", "sm90_", "sm80_")),
-         ("normalisation", ("layer_norm", "GammaBeta", "batch_norm")),
+         ("normalisation", ("layer_norm", "GammaBeta", "batch_norm", "bn_fw", "bn_bw")),
          ("copies and casts", ("copy", "Memcpy", "Memset")),
          ("optimizer (foreach)", ("multi_tensor_apply",)),
          ("softmax", ("softmax",)),

@@ -37,10 +37,10 @@ epoch's index matrix and metric buffers (`Trainer.begin_epoch`).
 Its counts and spans are in `utils/trace.py`: `graph.warmup_steps`,
 `graph.captures` and `graph.replays`, and the recorded spans
 `graph.warmup` (each warm-up step) and `graph.capture`; a replay is a span
-`graph.replay` under a profiler only. The photometric wrapper counts its
-launches (`photometric.launches`) as it makes them, so the capture's count
-stands for the graph's first replay, and every later replay adds the
-launches its capture held.
+`graph.replay` under a profiler only. The kernel wrappers count their
+launches (`trace.LAUNCHES`: `photometric.launches`, `stem.launches`) as
+they make them, so the capture's counts stand for the graph's first
+replay, and every later replay adds the launches its capture held.
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ class StepGraph:
     def __init__(self):
         self.graph: torch.cuda.CUDAGraph | None = None
         self.warm = 0
-        self.launches = 0       # photometric launches the captured step holds
+        self.launches = dict.fromkeys(trace.LAUNCHES, 0)  # those the captured step holds
         self.replays = 0
         self.pool_bytes: int | None = None
 
@@ -105,7 +105,7 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(trainer.generator)
         step, taken = state.step, state.scheduler.taken
-        launches = trace.counters.get("photometric.launches", 0)
+        launches = {k: trace.counters.get(k, 0) for k in trace.LAUNCHES}
         try:
             # thread_local: a process group's watchdog thread may query its
             # events meanwhile, and the step is all on this thread
@@ -117,7 +117,7 @@ class StepGraph:
                                f"CUDA graph failed: {err}") from err
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         state.step, state.scheduler.taken = step, taken
-        self.launches = trace.counters.get("photometric.launches", 0) - launches
+        self.launches = {k: trace.counters.get(k, 0) - n for k, n in launches.items()}
         self.graph = graph
         trace.count("graph.captures")
 
@@ -127,6 +127,8 @@ class StepGraph:
         state.step += 1
         state.scheduler.taken += 1
         if self.replays:
-            trace.count("photometric.launches", self.launches)
+            for k, n in self.launches.items():
+                if n:
+                    trace.count(k, n)
         self.replays += 1
         trace.count("graph.replays")

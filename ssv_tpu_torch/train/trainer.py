@@ -23,7 +23,9 @@ marks it, backward, optimizer, state, end), into a (steps, marks) buffer
 beside the metrics', read with them at the epoch's end; `train()` puts the
 median of each phase, and of the gap between steps, into the epoch's
 record (`phase_ms`), with the host seconds of the epoch boundary's
-recorded spans (`boundary_s`) and the process's counters. Set-up is
+recorded spans (`boundary_s`), the process's counters and the kernel
+launches of the epoch's steps (`photometric_launches`, `stem_launches`;
+replays counted, the KNN eval's and the probe's not). Set-up is
 recorded as the spans `setup.config`, `setup.pipeline`,
 `setup.algorithm`, `setup.state` and `setup.load`. Under a profiler each
 step is a range `step <s>`, over its phases' ranges in an eager step or a
@@ -448,7 +450,7 @@ class Trainer:
             with trace.span("pre_epoch", record=True):
                 state = self.algorithm.pre_epoch(state, self, epoch)
             idx_mat = self.epoch_indices()
-            launches = self.photometric_launches()
+            launches = {k: trace.counters.get(k, 0) for k in trace.LAUNCHES}
             tracing = bool(profile_dir) and epoch == profile_epoch
             with (self._trace(profile_dir, epoch) if tracing else contextlib.nullcontext()):
                 t0 = time.perf_counter()
@@ -458,11 +460,14 @@ class Trainer:
                 dt = time.perf_counter() - t0
             self.state = state
             self.start_epoch = epoch + 1
+            # the epoch's own launches: none of the KNN eval's or the probe's
+            launches = {k: trace.counters.get(k, 0) - n for k, n in launches.items()}
             means = {k: float(v.mean()) for k, v in metrics.items()}
             stats = {"epoch": epoch, "steps": idx_mat.shape[0],
                      "losses": metrics["loss"].tolist(), "seconds": dt,
                      "steady_img_per_s": steady,
-                     "photometric_launches": self.photometric_launches() - launches,
+                     "photometric_launches": launches["photometric.launches"],
+                     "stem_launches": launches["stem.launches"],
                      "mode": self.epoch_mode, "phase_ms": self.phase_ms}
 
             ips = idx_mat.numel() / dt

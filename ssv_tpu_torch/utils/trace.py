@@ -13,9 +13,10 @@
   * `counters`: one dict of the process's counts, by name (`count`):
     `graph.captures`, `graph.replays`, `graph.warmup_steps`,
     `graph.drops.<reason>` (`refill`, `load`, `shape`: why the trainer
-    dropped a captured step), `photometric.launches` (a graph replay counts
-    the launches its capture held), `collectives.calls`, `.bytes` and
-    `.host_s` (host seconds inside them).
+    dropped a captured step), the kernels' launches `LAUNCHES`
+    (`photometric.launches`, `stem.launches`: counted by their wrappers as
+    they launch; a graph replay counts those its capture held),
+    `collectives.calls`, `.bytes` and `.host_s` (host seconds inside them).
   * The step's phase marks (`phases`, `phase`): inside `Trainer._train_step`
     each `phase(mark)` starts the phase `mark` of `MARKS` and ends the one
     before it. On CUDA it launches the mark kernel `ssv_mark_<mark>`
@@ -41,6 +42,8 @@ import torch
 from ..ops.phase_mark import phase_mark
 
 MARKS = ("views", "forward", "loss", "backward", "optimizer", "state", "end")
+# the counters of kernel launches (`ops/photometric.py`, `ops/stem.py`)
+LAUNCHES = ("photometric.launches", "stem.launches")
 RING = 4096
 
 counters: dict[str, int | float] = {}

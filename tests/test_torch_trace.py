@@ -176,6 +176,36 @@ def test_setup_and_boundary_spans_in_the_epoch_record(tmp_path, monkeypatch):
         "setup.config", "setup.pipeline", "setup.algorithm", "setup.state", "setup.load"]
 
 
+def test_epoch_record_counts_its_steps_launches(tmp_path, monkeypatch):
+    """An epoch record's `photometric_launches` and `stem_launches` are its
+    steps' launches (two and six a step here, as the wrappers count them on
+    the card), not the KNN eval's after the epoch (two stem launches a
+    batch in eval mode on the card) or the probe's."""
+    monkeypatch.chdir(tmp_path)
+    trainer = _trainer(tmp_path, epochs=2, eval_every=1, linear_eval={"epochs": 1},
+                       make_dirs=True)
+    step, knn = trainer._train_step, trainer.knn_validate
+
+    def counted_step(state):
+        trace.count("photometric.launches", 2)
+        trace.count("stem.launches", 6)
+        step(state)
+
+    def counted_knn():
+        trace.count("stem.launches", 2)
+        return knn()
+
+    trainer._train_step, trainer.knn_validate = counted_step, counted_knn
+    before = dict(trace.counters)
+    trainer.train()
+    steps = [stats["steps"] for stats in trainer.epoch_stats]
+    assert steps == [4, 4]
+    assert [s["photometric_launches"] for s in trainer.epoch_stats] == [8, 8]
+    assert [s["stem_launches"] for s in trainer.epoch_stats] == [24, 24]
+    got = _delta(before)
+    assert (got["photometric.launches"], got["stem.launches"]) == (16, 48 + 2 * 2)
+
+
 # --------------------------------------------------------------------------
 # the counters
 # --------------------------------------------------------------------------
@@ -197,7 +227,8 @@ class _FakeStream:
 def fake_cuda_graph(monkeypatch):
     """`train/graph.py`'s CUDA calls made to run on the CPU: the capture runs
     the step once, a replay runs nothing; every step of the trainer's counts
-    two photometric launches, as the wrapper counts them on the card."""
+    two photometric launches and six stem launches, as the wrappers count
+    them on the card."""
     stream = _FakeStream()
     monkeypatch.setattr(graph_mod, "side_stream", lambda device: stream)
     for name, fn in (("current_stream", lambda device=None: stream),
@@ -216,6 +247,7 @@ def fake_cuda_graph(monkeypatch):
 
         def step(state):
             trace.count("photometric.launches", 2)
+            trace.count("stem.launches", 6)
             real(state)
 
         trainer._train_step = step
@@ -228,9 +260,9 @@ def test_graph_counters_count_as_the_old_attributes(tmp_path, monkeypatch, fake_
                                                     record_functions):
     """Three warm-up steps, one capture and replays: `graph.warmup_steps` 3,
     `graph.captures` 1, `graph.replays` and `StepGraph.replays` the replays,
-    `photometric.launches` two a step, replays included (the old wrapper's
-    count plus `StepGraph.replayed_launches`), and the graph's own count of
-    the launches it holds; recorded spans only for the warm-up steps and the
+    `photometric.launches` two a step and `stem.launches` six, replays
+    included (the old wrapper's count plus `StepGraph.replayed_launches`),
+    and the graph's own count of the launches it holds; recorded spans only for the warm-up steps and the
     capture, none a replay, and no `record_function` without a profiler."""
     monkeypatch.chdir(tmp_path)
     trainer = fake_cuda_graph(tmp_path)
@@ -244,8 +276,10 @@ def test_graph_counters_count_as_the_old_attributes(tmp_path, monkeypatch, fake_
         trainer.step(state)
     assert [s[0] for s in trace.since(token)] == ["graph.warmup"] * 3 + ["graph.capture"]
     assert _delta(before) == {"graph.warmup_steps": 3, "graph.captures": 1,
-                              "graph.replays": 3, "photometric.launches": 12}
-    assert trainer.graph.replays == 3 and trainer.graph.launches == 2
+                              "graph.replays": 3, "photometric.launches": 12,
+                              "stem.launches": 36}
+    assert trainer.graph.replays == 3
+    assert trainer.graph.launches == {"photometric.launches": 2, "stem.launches": 6}
     assert trainer.photometric_launches() == trace.counters["photometric.launches"]
     assert state.step == 6 and trainer._host_pos == 6
     assert trace.last_seconds("graph.capture") >= 0
