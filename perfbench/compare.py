@@ -62,16 +62,18 @@ def gaps(prog: dict, ref: dict, start: dict) -> tuple[list, dict, dict]:
     """(each step's loss gap, each counted leaf's first-gradient gap, each
     counted leaf's change gap) for the program's and the reference's
     {"losses", "first_grad", "params"}; `start` the weights both began
-    from (on any device)."""
+    from (on any device). The leaves are the reference's parameters: a
+    weight marked as a state buffer (`inputs.buffers`) is never one."""
     if len(prog["losses"]) != len(ref["losses"]) or not ref["losses"]:
         raise ValueError("the two sides checked different steps")
     loss = [abs(p - r) / max(abs(r), 1e-30) for p, r in zip(prog["losses"], ref["losses"])]
     grad = leaf_gaps(prog["first_grad"], ref["first_grad"],
                      counted(ref["first_grad"], ref["first_grad"]))
-    start = {n: t.detach().float().cpu() for n, t in start.items()}
-    delta_p = {n: prog["params"][n].cpu() - start[n] for n in start}
-    delta_r = {n: ref["params"][n].float().cpu() - start[n] for n in start}
-    change = leaf_gaps(delta_p, delta_r, counted(ref["first_grad"], start))
+    names = list(ref["params"])
+    start = {n: start[n].detach().float().cpu() for n in names}
+    delta_p = {n: prog["params"][n].cpu() - start[n] for n in names}
+    delta_r = {n: ref["params"][n].float().cpu() - start[n] for n in names}
+    change = leaf_gaps(delta_p, delta_r, counted(ref["first_grad"], names))
     return loss, grad, change
 
 

@@ -4,10 +4,12 @@ the plain reference, and the result line.
 Everything a cell is made of is found by name from `BENCHMARK.json`: its
 configuration in `configs/<config>.json` (the recipe as the port runs it,
 and its `algo` and `arch`), its traffic in `workloads/<traffic>.json`, the
-reference of its algorithm in `reference/<algo>.py`, its FLOP count in
-`counts/<algo>.py`, each metric's reader in `metrics/<metric>.py`, and the
-limits of its comparison in `limits/<cell>.json`. A new cell, configuration
-or metric is new files and entries; no file here changes.
+reference of its algorithm in `reference/<algo>.py` (its weights, views,
+loss, optimizer and state: `reference/__init__.py`'s hooks), its FLOP
+count in `counts/<algo>.py`, each metric's reader in
+`metrics/<metric>.py`, and the limits of its comparison in
+`limits/<cell>.json`. A new cell, configuration, algorithm or metric is new
+files and entries; no file here changes.
 
 A run (`measure`):
 
@@ -91,6 +93,7 @@ class Cell:
         self.steps_per_epoch = int(self.traffic["n_train"]) // self.batch
         self.hw = tuple(self.traffic["image"][:2])
         self.specs = reference.algorithm(self.cfg["algo"]).specs(self.cfg)
+        self.buffers = inputs.buffers(self.specs)
         counts = importlib.import_module(f"{__package__}.counts.{self.cfg['algo']}")
         self.flops_per_image = counts.flops_per_image(self.cfg, self.hw, self.batch)
 
@@ -130,7 +133,6 @@ def _sync(device) -> None:
 def _setup(cell: Cell, trainer, weights: dict, log, t_start: float) -> dict:
     """The first steps (module docstring); the program's readings."""
     k = int(cell.traffic["check_steps"])
-    wd = float(cell.cfg["optimizer"].get("weight_decay", 0.0))
     program.begin_run(trainer)
     program.begin_epoch(trainer, 1)
     prog, pos = {}, 0
@@ -141,7 +143,7 @@ def _setup(cell: Cell, trainer, weights: dict, log, t_start: float) -> dict:
         pos += 1
         log(f"[perfbench] set-up {time.perf_counter() - t_start:.3f} s: step {pos} queued")
         if pos == 1:
-            prog["first_grad"] = program.first_grad(trainer, weights, wd)
+            prog["first_grad"] = program.first_grad(trainer, weights)
         if pos == k:
             prog["params"] = program.params(trainer)
             prog["losses"] = program.losses(trainer, 0, k).tolist()
@@ -245,7 +247,7 @@ def measure(cell: Cell, seed: int, seconds: float, traced: bool, device, t_start
     trainer = program.build(cell.config_path, cell.cfg, data, seeds["draws"], device,
                             cell.overrides)
     del data
-    program.load_weights(trainer, weights)
+    program.load_weights(trainer, weights, cell.buffers)
     log(f"[perfbench] set-up {time.perf_counter() - t_start:.3f} s: trainer built")
     weights = {n: w.cpu() for n, w in weights.items()}
     prog = _setup(cell, trainer, weights, log, t_start)

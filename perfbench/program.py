@@ -45,16 +45,29 @@ def _leaves(trainer) -> dict[str, torch.nn.Parameter]:
 
 
 @torch.no_grad()
-def load_weights(trainer, weights: dict) -> None:
-    leaves = _leaves(trainer)
-    if set(leaves) != set(weights):
+def load_weights(trainer, weights: dict, buffers=()) -> None:
+    """The benchmark's weights into the program: every parameter of its
+    towers (`_leaves`), and each name of `buffers` (`<key>.<buffer>`, the
+    state buffer `<buffer>` of the module `state.extra[<key>]`, or of the
+    trained tower for `model`) into that buffer."""
+    state, leaves = trainer.state, _leaves(trainer)
+    named = [n for n in weights if n not in set(buffers)]
+    if set(leaves) != set(named):
         raise KeyError("the benchmark's weights and the program's parameters differ: "
-                       f"{sorted(set(leaves) ^ set(weights))[:6]}")
-    for name, p in leaves.items():
-        if tuple(p.shape) != tuple(weights[name].shape):
-            raise ValueError(f"{name}: program {tuple(p.shape)}, benchmark "
+                       f"{sorted(set(leaves) ^ set(named))[:6]}")
+    targets = dict(leaves)
+    for name in buffers:
+        key, _, rest = name.partition(".")
+        module = state.model if key == "model" else state.extra.get(key)
+        found = dict(module.named_buffers()) if module is not None else {}
+        if rest not in found:
+            raise KeyError(f"{name}: the program has no such buffer")
+        targets[name] = found[rest]
+    for name, t in targets.items():
+        if tuple(t.shape) != tuple(weights[name].shape):
+            raise ValueError(f"{name}: program {tuple(t.shape)}, benchmark "
                              f"{tuple(weights[name].shape)}")
-        p.copy_(weights[name])
+        t.copy_(weights[name])
 
 
 def params(trainer) -> dict[str, torch.Tensor]:
@@ -62,18 +75,58 @@ def params(trainer) -> dict[str, torch.Tensor]:
     return {n: p.detach().float().cpu().clone() for n, p in _leaves(trainer).items()}
 
 
-def first_grad(trainer, weights: dict, weight_decay: float) -> dict[str, torch.Tensor]:
+def _decay(value) -> float:
+    return float(value.detach().cpu()) if torch.is_tensor(value) else float(value)
+
+
+def first_grad(trainer, weights: dict) -> dict[str, torch.Tensor]:
     """The first step's gradient of each trained parameter as the optimizer
-    got it, worked out from its state after that one step: SGD's momentum
-    buffer then holds the gradient plus weight_decay x the starting
-    weights. A parameter without a buffer got no gradient: zeros."""
+    took it (after the recipe's clamp), worked out from the optimizer's
+    state after that one step and the weights it started from, with the
+    decay each parameter's group used in that step:
+
+      * torch's SGD: the momentum buffer, which then holds the gradient
+        plus wd x the weights (the group's `weight_decay`, or the decay of
+        the scheduler's table at the first step where the schedule adds it
+        to the gradients);
+      * the port's `OptaxAdam`: the first moment over 1 - b1 = 0.1 (its
+        first step makes the moment 0.1 g), less wd x the weights where the
+        decay is coupled (the group's `decoupled` false; decoupled decay
+        never reaches the moment).
+
+    A parameter with no state got no gradient: zeros. Any other optimizer
+    raises."""
+    from ssv_tpu_torch.train.optim import OptaxAdam
+
     state = trainer.state
+    opt = state.optimizer
+    if isinstance(opt, OptaxAdam):
+        def took(st, w, group):
+            if "mu" not in st:
+                return None
+            g = st["mu"].double().cpu() / 0.1
+            if not group["decoupled"]:
+                g = g - _decay(group["weight_decay"]) * w.double()
+            return g.float()
+    elif isinstance(opt, torch.optim.SGD):
+        sched = state.scheduler
+        column = sched.columns.get("weight_decay")
+        scheduled = 0.0 if column is None else _decay(sched.table[0, column])
+
+        def took(st, w, group):
+            buf = st.get("momentum_buffer")
+            if buf is None:
+                return None
+            return buf.float().cpu() - (_decay(group["weight_decay"]) + scheduled) * w
+    else:
+        raise TypeError(f"first_grad reads torch.optim.SGD and OptaxAdam, not "
+                        f"{type(opt).__module__}.{type(opt).__name__}")
+    group_of = {id(p): g for g in opt.param_groups for p in g["params"]}
     out = {}
     for n, p in state.model.named_parameters():
-        buf = state.optimizer.state[p].get("momentum_buffer")
         w = weights[f"model.{n}"].cpu()
-        out[f"model.{n}"] = (torch.zeros_like(w) if buf is None
-                             else buf.float().cpu() - weight_decay * w)
+        g = took(opt.state[p], w, group_of[id(p)])
+        out[f"model.{n}"] = torch.zeros_like(w) if g is None else g
     return out
 
 

@@ -42,7 +42,8 @@ def tower(params, side: str, x, cast):
     return l2_normalize(z)
 
 
-def loss(params: dict, v1, v2, cfg: dict, cast):
+def loss(params: dict, views: list, cfg: dict, cast, state: dict):
+    v1, v2 = views
     with torch.no_grad():
         t1, t2 = tower(params, "target", v1, cast), tower(params, "target", v2, cast)
     o1, o2 = tower(params, "model", v1, cast), tower(params, "model", v2, cast)
@@ -50,7 +51,7 @@ def loss(params: dict, v1, v2, cfg: dict, cast):
 
 
 @torch.no_grad()
-def after_update(params: dict, step: int, cfg: dict, steps_per_epoch: int) -> None:
+def after_update(params: dict, step: int, cfg: dict, steps_per_epoch: int, state: dict) -> None:
     tau = cosine_ramp(step, int(cfg["epochs"]) * steps_per_epoch,
                       float(cfg.get("tau", 0.996)), 1.0)
     for name in params:

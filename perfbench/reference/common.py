@@ -1,13 +1,15 @@
 """Pieces the reference steps share: the MLP heads, L2 normalisation, the
 learning-rate and EMA schedules, SGD with Nesterov momentum and coupled
-weight decay, and the rounding to fp8 that the control runs with. Plain
-PyTorch, float32.
+weight decay, Adam with coupled or decoupled decay and an element clamp,
+and the rounding to fp8 that the control runs with. Plain PyTorch,
+float32.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .resnet18 import batch_norm
@@ -70,6 +72,40 @@ def sgd_nesterov(params: dict, grads: dict, bufs: dict, lr: float, cfg: dict) ->
         d = g + wd * p
         bufs[name] = d.clone() if name not in bufs else momentum * bufs[name] + d
         p.sub_(lr * (d + momentum * bufs[name]))
+
+
+@torch.no_grad()
+def adam(params: dict, grads: dict, moments: dict, step: int, lr: float, weight_decay: float,
+         decoupled: bool, clip: float | None = None, eps: float = 1e-8,
+         betas: tuple[float, float] = (0.9, 0.999)) -> dict:
+    """Adam (arXiv:1412.6980) in this order: each gradient element clamped
+    to +-clip; the decay wd p added to the gradient where it is coupled
+    (`adam`); the moments m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2
+    (zero before the first step); the update m / (1 - b1^t) over
+    sqrt(v / (1 - b2^t)) + eps, t = step + 1, the corrections in float32;
+    wd p added to the update where the decay is decoupled (AdamW,
+    arXiv:1711.05101); p -= lr x update. `moments` keeps (m, v) by name.
+    Returns the gradients as clamped, before any decay."""
+    b1, b2 = betas
+    t = np.float32(step + 1)
+    c1 = float(np.float32(1) - np.float32(b1) ** t)
+    c2 = float(np.float32(1) - np.float32(b2) ** t)
+    taken = {}
+    for name, g in grads.items():
+        p = params[name]
+        g = g if clip is None else torch.clamp(g, -clip, clip)
+        taken[name] = g
+        if not decoupled:
+            g = g + weight_decay * p
+        m, v = moments.get(name, (torch.zeros_like(p), torch.zeros_like(p)))
+        m = b1 * m + (1.0 - b1) * g
+        v = b2 * v + (1.0 - b2) * g * g
+        moments[name] = (m, v)
+        u = (m / c1) / (torch.sqrt(v / c2) + eps)
+        if decoupled:
+            u = u + weight_decay * p
+        p.sub_(lr * u)
+    return taken
 
 
 def _round(x, dtype):

@@ -2,7 +2,7 @@
 the ResNet-18 and the projection fc-bn-relu-fc-bn, run on each view
 separately (each view's BN takes its own batch's statistics), and NT-Xent
 over the 2N x 2N cosine similarity at the config's temperature; every
-parameter trains."""
+parameter trains. Two views and Nesterov SGD: the step loop's defaults."""
 
 from __future__ import annotations
 
@@ -40,10 +40,7 @@ def nt_xent(z1, z2, temperature: float):
     return (torch.logsumexp(sim, dim=1) - pos).mean()
 
 
-def loss(params: dict, v1, v2, cfg: dict, cast):
+def loss(params: dict, views: list, cfg: dict, cast, state: dict):
+    v1, v2 = views
     t = float(cfg["loss_fn"]["temperature"])
     return nt_xent(tower(params, v1, cast), tower(params, v2, cast), t)
-
-
-def after_update(params: dict, step: int, cfg: dict, steps_per_epoch: int) -> None:
-    """Nothing beyond the optimizer's update."""

@@ -59,7 +59,7 @@ def test_step_flops_match_the_counter(algo):
     v1, v2 = torch.rand(batch, 32, 32, 3), torch.rand(batch, 32, 32, 3)
     leaves = [params[n].requires_grad_(True) for n in mod.trainable(params)]
     with FlopCounterMode(display=False) as counter:
-        torch.autograd.grad(mod.loss(params, v1, v2, cfg, identity), leaves)
+        torch.autograd.grad(mod.loss(params, [v1, v2], cfg, identity, {}), leaves)
     first_conv = 2 * 32 * 32 * 64 * 3 * 9
     count = {"simclr": simclr, "byol": byol}[algo].flops_per_image(cfg, (32, 32), batch)
     assert counter.get_total_flops() == count * batch - 2 * first_conv * batch
