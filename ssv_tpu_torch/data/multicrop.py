@@ -9,11 +9,13 @@ cropped `num_global` times at `global_size` with scale (s, 1.0) and
 A group's V crops of the B images are one `random_resized_crop` over the
 B*V images repeated in place (image-major), so every crop draws its own
 box, as under the JAX package's vmap, and a group costs the launches of
-one call, not V.
+one call, not V. Each group counts its B*V crops into the counter
+`multicrop.crops` (`utils/trace.py`).
 """
 
 from __future__ import annotations
 
+from ..utils import trace
 from .augment import build_batch_transform, random_resized_crop
 
 
@@ -34,6 +36,7 @@ class MultiCrop:
         """(B, H, W, 3) -> (B, n, *size, 3): n bicubic random resized crops
         of each image, one box each."""
         B = images.shape[0]
+        trace.count("multicrop.crops", B * n)
         out = random_resized_crop(generator, images.repeat_interleave(n, dim=0), size,
                                   scale=scale, method="cubic")
         return out.reshape(B, n, *out.shape[1:])

@@ -16,7 +16,9 @@ What the JAX module does, kept here:
     with -1e9; `fuse_qkv` runs one (d, 3d) product over the same three
     weights; `return_attn` gives each layer's probabilities with padded rows
     and columns cut;
-  * the output is the CLS token in float32.
+  * the output is the CLS token in float32;
+  * each forward counts its tokens, padded, times the batch into the
+    counter `vit.tokens` (`utils/trace.py`).
 
 Numerics. The compute dtype is the module's `dtype` where it is given,
 else the caller's autocast dtype (bf16 on the card), else float32; the
@@ -42,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import trace
 from .heads import _lecun_trunc_normal_
 
 NEG_MASK = -1e9
@@ -178,6 +181,7 @@ class TransformerEncoder(nn.Module):
                 if pad:
                     x = F.pad(x, (0, 0, 0, pad))
                     valid_len = seq
+            trace.count("vit.tokens", x.shape[0] * x.shape[1])
             attn = {}
             for i, layer in enumerate(self.layers):
                 x, probs = layer(x, dt, valid_len)

@@ -1,8 +1,8 @@
 """The train step's phase marks on the card (`csrc/phase_mark.cu`).
 
-`phase_mark(index, pos, stamps)` launches the mark kernel
+`phase_mark(index, column, pos, stamps)` launches the mark kernel
 `ssv_mark_<MARKS[index]>` on the current stream, which writes the card's
-`%globaltimer` (ns) into `stamps[pos, index]`, `pos` read on the device;
+`%globaltimer` (ns) into `stamps[pos, column]`, `pos` read on the device;
 inside a capture it becomes a node of the graph, replayed with it. It has
 no plain version to fall back to: a mark is a timestamp of the card, so on
 any other device it does nothing. `utils/trace.py` places the marks and
@@ -16,9 +16,10 @@ import ctypes
 import torch
 
 
-def phase_mark(index: int, pos: torch.Tensor, stamps: torch.Tensor) -> None:
-    """Writes mark `index` of the step at `pos` into `stamps`, (steps,
-    marks) int64 on the card (module docstring)."""
+def phase_mark(index: int, column: int, pos: torch.Tensor, stamps: torch.Tensor) -> None:
+    """Writes mark `index` of the step at `pos` into column `column` of
+    `stamps`, (steps, the step's marks) int64 on the card (module
+    docstring)."""
     if stamps.device.type != "cuda":
         return
     if (pos.device != stamps.device or pos.dtype != torch.int64 or pos.numel() != 1
@@ -27,8 +28,9 @@ def phase_mark(index: int, pos: torch.Tensor, stamps: torch.Tensor) -> None:
                          f"stamps {stamps.dtype} {tuple(stamps.shape)} on {stamps.device}")
     with torch.cuda.device(stamps.device):
         err = _library().ssv_phase_mark(
-            index, ctypes.c_void_p(pos.data_ptr()), ctypes.c_void_p(stamps.data_ptr()),
-            stamps.shape[0], ctypes.c_void_p(torch.cuda.current_stream(stamps.device).cuda_stream))
+            index, column, ctypes.c_void_p(pos.data_ptr()), ctypes.c_void_p(stamps.data_ptr()),
+            stamps.shape[0], stamps.shape[1],
+            ctypes.c_void_p(torch.cuda.current_stream(stamps.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"phase mark {index} launch failed: CUDA error {err}")
 
@@ -37,7 +39,8 @@ def _library():
     from .build import load
     lib = load("phase_mark")
     if lib.ssv_phase_mark.argtypes is None:
-        lib.ssv_phase_mark.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_int, ctypes.c_void_p]
+        lib.ssv_phase_mark.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p]
         lib.ssv_phase_mark.restype = ctypes.c_int
     return lib

@@ -31,7 +31,10 @@ with a centred, sharpened teacher.
     (`step_tables`), so a step reads nothing on the host;
   * `fuse_views` (default: on for the ViT, whose LayerNorm couples no
     samples, off for BN towers) runs each group of same-size views as one
-    forward.
+    forward;
+  * the step marks `student` after the teacher's forward and `loss` before
+    the loss (`utils/trace.py`), so `forward` is the teacher's and
+    `student` the student's forward.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from ...models.registry import build_encoder
 from ...objectives.losses import dino_loss
 from ...parallel import pmean
 from ...state.ema import ema_update
+from ...utils import trace
 from ...utils.schedules import cosine_ramp, dino_teacher_temp, dino_weight_decay
 from ..base import Algorithm, DataInfo, TrainState
 from .common import Tower, forward_views
@@ -61,6 +65,7 @@ class Center(nn.Module):
 class DINO(Algorithm):
     name = "dino"
     batch_kind = "multicrop"
+    marks = trace.MARKS
 
     def __init__(self, config, arch: str, data: DataInfo, device: torch.device):
         super().__init__(config, arch, data, device)
@@ -140,12 +145,14 @@ class DINO(Algorithm):
                       for t in forward_views(teacher, [g1, g2], self.fuse))
         center = state.extra["center"].value
 
+        trace.phase("student")
         model = state.model.train()
         with self.autocast():
             sg1, sg2 = forward_views(model, [g1, g2], self.fuse)
             sl1, sl2 = forward_views(model, [l1, l2], self.fuse)
         s1 = torch.cat([sg1.float().reshape(b, vg, -1), sl1.float().reshape(b, vl, -1)], 1)
         s2 = torch.cat([sg2.float().reshape(b, vg, -1), sl2.float().reshape(b, vl, -1)], 1)
+        trace.phase("loss")
         loss = (0.5 * dino_loss(t1, s2, self.temp_student, temp_t, center)
                 + 0.5 * dino_loss(t2, s1, self.temp_student, temp_t, center))
 

@@ -67,6 +67,8 @@ class Algorithm:
 
     name: str = "base"
     batch_kind: str = "double"
+    # the phase marks its step makes (`utils/trace.py`), the stamps' columns
+    marks: tuple = trace.STEP_MARKS
 
     def __init__(self, config, arch: str, data: DataInfo, device: torch.device):
         self.config = config

@@ -39,8 +39,10 @@ Its counts and spans are in `utils/trace.py`: `graph.warmup_steps`,
 `graph.warmup` (each warm-up step) and `graph.capture`; a replay is a span
 `graph.replay` under a profiler only. The kernel wrappers count their
 launches (`trace.LAUNCHES`: `photometric.launches`, `stem.launches`) as
-they make them, so the capture's counts stand for the graph's first
-replay, and every later replay adds the launches its capture held.
+they make them, and the ViT and the multi-crop views their work
+(`trace.WORK`: `vit.tokens`, `multicrop.crops`), so the capture's counts
+stand for the graph's first replay, and every later replay adds the
+counts its capture held.
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ class StepGraph:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.warm = 0
         self.launches = dict.fromkeys(trace.LAUNCHES, 0)  # those the captured step holds
+        self.work = dict.fromkeys(trace.WORK, 0)           # likewise
         self.replays = 0
         self.pool_bytes: int | None = None
 
@@ -105,7 +108,7 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(trainer.generator)
         step, taken = state.step, state.scheduler.taken
-        launches = {k: trace.counters.get(k, 0) for k in trace.LAUNCHES}
+        before = {k: trace.counters.get(k, 0) for k in trace.REPLAYED}
         try:
             # thread_local: a process group's watchdog thread may query its
             # events meanwhile, and the step is all on this thread
@@ -117,7 +120,9 @@ class StepGraph:
                                f"CUDA graph failed: {err}") from err
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         state.step, state.scheduler.taken = step, taken
-        self.launches = {k: trace.counters.get(k, 0) - n for k, n in launches.items()}
+        held = {k: trace.counters.get(k, 0) - n for k, n in before.items()}
+        self.launches = {k: held[k] for k in trace.LAUNCHES}
+        self.work = {k: held[k] for k in trace.WORK}
         self.graph = graph
         trace.count("graph.captures")
 
@@ -127,7 +132,7 @@ class StepGraph:
         state.step += 1
         state.scheduler.taken += 1
         if self.replays:
-            for k, n in self.launches.items():
+            for k, n in (*self.launches.items(), *self.work.items()):
                 if n:
                     trace.count(k, n)
         self.replays += 1

@@ -18,13 +18,14 @@ eagerly. Both give the same results from the same state and draws.
 set, `train()` writes a `torch.profiler` trace of one epoch there.
 
 What the trainer measures of itself (`utils/trace.py`): on CUDA every step
-marks its phases on the card (views, forward, loss where the algorithm
-marks it, backward, optimizer, state, end), into a (steps, marks) buffer
-beside the metrics', read with them at the epoch's end; `train()` puts the
-median of each phase, and of the gap between steps, into the epoch's
-record (`phase_ms`), with the host seconds of the epoch boundary's
-recorded spans (`boundary_s`), the process's counters and the kernel
-launches of the epoch's steps (`photometric_launches`, `stem_launches`;
+marks its phases on the card (views, forward, DINO's student, loss where
+the algorithm marks it, backward, optimizer, state, end), into a (steps,
+the algorithm's marks) buffer beside the metrics', read with them at the
+epoch's end; `train()` puts the median of each phase, and of the gap
+between steps, into the epoch's record (`phase_ms`), with the host seconds
+of the epoch boundary's recorded spans (`boundary_s`), the process's
+counters, and the kernel launches and work counts of the epoch's steps
+(`photometric_launches`, `stem_launches`, `vit_tokens`, `multicrop_crops`;
 replays counted, the KNN eval's and the probe's not). Set-up is
 recorded as the spans `setup.config`, `setup.pipeline`,
 `setup.algorithm`, `setup.state` and `setup.load`. Under a profiler each
@@ -303,7 +304,7 @@ class Trainer:
         at the epoch position, its batch, the algorithm's step, its metrics
         written at the position, the position advanced; its phases marked
         (`utils/trace.py`). The graph captures exactly this."""
-        with trace.phases(self._stamps, self._pos):
+        with trace.phases(self._stamps, self._pos, self.algorithm.marks):
             trace.phase("views")
             images, labels = self.pipeline.arrays("train")
             idx = torch.index_select(self._epoch_idx, 0, self._pos.reshape(1))[0]
@@ -334,7 +335,7 @@ class Trainer:
                 self._epoch_idx = torch.empty_like(idx_mat)
                 self._metric_bufs = {}
                 if self.device.type == "cuda":
-                    self._stamps = torch.zeros((idx_mat.shape[0], len(trace.MARKS)),
+                    self._stamps = torch.zeros((idx_mat.shape[0], len(self.algorithm.marks)),
                                                dtype=torch.int64, device=self.device)
             self._epoch_idx.copy_(idx_mat)
             self._pos.zero_()
@@ -379,7 +380,7 @@ class Trainer:
         with trace.span("end_epoch", record=True):
             metrics = {k: v.cpu() for k, v in self._metric_bufs.items()}
             stamps = None if self._stamps is None else self._stamps.cpu()
-        self.phase_ms = None if stamps is None else trace.phase_ms(stamps)
+        self.phase_ms = None if stamps is None else trace.phase_ms(stamps, self.algorithm.marks)
         steady = None
         if cuda and len(events) > STEADY_AFTER:
             events[-1].synchronize()
@@ -450,7 +451,7 @@ class Trainer:
             with trace.span("pre_epoch", record=True):
                 state = self.algorithm.pre_epoch(state, self, epoch)
             idx_mat = self.epoch_indices()
-            launches = {k: trace.counters.get(k, 0) for k in trace.LAUNCHES}
+            launches = {k: trace.counters.get(k, 0) for k in trace.REPLAYED}
             tracing = bool(profile_dir) and epoch == profile_epoch
             with (self._trace(profile_dir, epoch) if tracing else contextlib.nullcontext()):
                 t0 = time.perf_counter()
@@ -460,7 +461,7 @@ class Trainer:
                 dt = time.perf_counter() - t0
             self.state = state
             self.start_epoch = epoch + 1
-            # the epoch's own launches: none of the KNN eval's or the probe's
+            # the epoch's own launches and work: none of the KNN eval's or the probe's
             launches = {k: trace.counters.get(k, 0) - n for k, n in launches.items()}
             means = {k: float(v.mean()) for k, v in metrics.items()}
             stats = {"epoch": epoch, "steps": idx_mat.shape[0],
@@ -468,6 +469,8 @@ class Trainer:
                      "steady_img_per_s": steady,
                      "photometric_launches": launches["photometric.launches"],
                      "stem_launches": launches["stem.launches"],
+                     "vit_tokens": launches["vit.tokens"],
+                     "multicrop_crops": launches["multicrop.crops"],
                      "mode": self.epoch_mode, "phase_ms": self.phase_ms}
 
             ips = idx_mat.numel() / dt

@@ -7,19 +7,30 @@ learning rate is the same number in both; each returns a Python float.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 f32 = np.float32
 
 
+def _unit(x):
+    """x clamped to [0, 1], a float32 scalar (np.clip's value, without its
+    per-call cost: the tables call these a million times)."""
+    return min(max(x, f32(0)), f32(1))
+
+
 def cosine_ramp(step, total_steps, lower: float, upper: float):
     """upper - (upper-lower) * (cos(pi * step/total) + 1) / 2: ``lower`` at
     step 0, ``upper`` at step == total_steps."""
-    frac = np.clip(f32(step) / f32(max(total_steps, 1)), f32(0), f32(1))
+    frac = _unit(f32(step) / f32(max(total_steps, 1)))
     return float(f32(upper) - f32(upper - lower) * (np.cos(f32(np.pi) * frac) + f32(1))
                  / f32(2))
 
 
+# the per-epoch schedules are tabled for every step of a run: worked out
+# once an epoch
+@functools.lru_cache(maxsize=None)
 def dino_teacher_temp(epoch, *, lower: float, upper: float, warmup_epochs: int):
     """Linear teacher-temperature warmup lower -> upper over
     `warmup_epochs`, then `upper` (reference dino.py:113-120)."""
@@ -29,6 +40,7 @@ def dino_teacher_temp(epoch, *, lower: float, upper: float, warmup_epochs: int):
     return float(f32(lower) + f32(upper - lower) * epoch / f32(max(warmup_epochs, 1)))
 
 
+@functools.lru_cache(maxsize=None)
 def dino_weight_decay(epoch, *, lower: float, upper: float, epochs: int):
     """Cosine weight-decay ramp lower -> upper over the epochs (reference
     dino.py:122-127)."""
@@ -42,7 +54,7 @@ def warmup_cosine(step, *, base_lr: float, total_steps: int, warmup_steps: int,
     if step < warmup_steps:
         return float(f32(1e-12) + f32(base_lr - 1e-12) * step / f32(max(warmup_steps, 1)))
     decay_steps = f32(max(total_steps - warmup_steps, 1))
-    frac = np.clip((step - f32(warmup_steps)) / decay_steps, f32(0), f32(1))
+    frac = _unit((step - f32(warmup_steps)) / decay_steps)
     cos = f32(end_lr) + f32((base_lr - end_lr) * 0.5) * (f32(1) + np.cos(f32(np.pi) * frac))
     return float(cos)
 

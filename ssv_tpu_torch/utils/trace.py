@@ -15,13 +15,19 @@
     `graph.drops.<reason>` (`refill`, `load`, `shape`: why the trainer
     dropped a captured step), the kernels' launches `LAUNCHES`
     (`photometric.launches`, `stem.launches`: counted by their wrappers as
-    they launch; a graph replay counts those its capture held),
-    `collectives.calls`, `.bytes` and `.host_s` (host seconds inside them).
+    they launch), the work counts `WORK` (`vit.tokens`: the tokens, padded,
+    times the batch of every `TransformerEncoder` forward; `multicrop.crops`:
+    the crops `MultiCrop.crops` makes), `collectives.calls`, `.bytes` and
+    `.host_s` (host seconds inside them). A graph replay adds the launches
+    and work counts its capture held (`REPLAYED`).
   * The step's phase marks (`phases`, `phase`): inside `Trainer._train_step`
     each `phase(mark)` starts the phase `mark` of `MARKS` and ends the one
-    before it. On CUDA it launches the mark kernel `ssv_mark_<mark>`
-    (`ops/phase_mark.py`), which writes the card's `%globaltimer` into
-    `stamps[pos, mark]` at the step's position `pos` read on the device,
+    before it. An algorithm marks the steps of its `marks` (`STEP_MARKS`,
+    or all of `MARKS` for DINO, whose `student` mark splits the teacher's
+    forward from the student's). On CUDA it launches the mark kernel
+    `ssv_mark_<mark>` (`ops/phase_mark.py`), which writes the card's
+    `%globaltimer` into `stamps[pos, column]`, the column the mark's place
+    in the step's marks, at the step's position `pos` read on the device,
     so a captured step replays its marks with the graph; under a profiler
     the same call closes the host range of the phase before and opens
     `phase.<mark>`. A phase runs from its mark to the next mark present;
@@ -41,9 +47,15 @@ import torch
 
 from ..ops.phase_mark import phase_mark
 
-MARKS = ("views", "forward", "loss", "backward", "optimizer", "state", "end")
+MARKS = ("views", "forward", "student", "loss", "backward", "optimizer", "state", "end")
+# the marks of every algorithm's step but DINO's
+STEP_MARKS = tuple(m for m in MARKS if m != "student")
 # the counters of kernel launches (`ops/photometric.py`, `ops/stem.py`)
 LAUNCHES = ("photometric.launches", "stem.launches")
+# the counters of work done (`models/vit.py`, `data/multicrop.py`)
+WORK = ("vit.tokens", "multicrop.crops")
+# what a graph replay adds again, as its capture counted it
+REPLAYED = LAUNCHES + WORK
 RING = 4096
 
 counters: dict[str, int | float] = {}
@@ -135,23 +147,23 @@ def write(path: str) -> None:
 # --------------------------------------------------------------------------
 
 class _Step:
-    __slots__ = ("stamps", "pos", "range")
+    __slots__ = ("stamps", "pos", "marks", "range")
 
-    def __init__(self, stamps, pos):
-        self.stamps, self.pos, self.range = stamps, pos, None
+    def __init__(self, stamps, pos, marks):
+        self.stamps, self.pos, self.marks, self.range = stamps, pos, marks, None
 
 
 _step: _Step | None = None
 
 
 @contextlib.contextmanager
-def phases(stamps: torch.Tensor | None, pos: torch.Tensor):
-    """The block is one train step: `phase` marks it. `stamps` is the
-    epoch's (steps, len(MARKS)) int64 buffer on the card, or None (off
-    CUDA: no device marks); `pos` the step's position, a 0-dim int64 on
-    the same device."""
+def phases(stamps: torch.Tensor | None, pos: torch.Tensor, marks: tuple = STEP_MARKS):
+    """The block is one train step: `phase` marks it with `marks`. `stamps`
+    is the epoch's (steps, len(marks)) int64 buffer on the card, or None
+    (off CUDA: no device marks); `pos` the step's position, a 0-dim int64
+    on the same device."""
     global _step
-    _step = _Step(stamps, pos)
+    _step = _Step(stamps, pos, marks)
     try:
         yield
     finally:
@@ -166,8 +178,10 @@ def phase(mark: str) -> None:
     step = _step
     if step is None:
         return
+    if mark not in step.marks:
+        raise ValueError(f"phase {mark!r} is not among the step's marks {step.marks}")
     if step.stamps is not None:
-        phase_mark(MARKS.index(mark), step.pos, step.stamps)
+        phase_mark(MARKS.index(mark), step.marks.index(mark), step.pos, step.stamps)
     if step.range is not None:
         step.range.__exit__(None, None, None)
         step.range = None
@@ -176,18 +190,19 @@ def phase(mark: str) -> None:
         step.range.__enter__()
 
 
-def phase_ms(stamps: torch.Tensor) -> dict[str, float] | None:
+def phase_ms(stamps: torch.Tensor, marks: tuple = STEP_MARKS) -> dict[str, float] | None:
     """The median over an epoch's steps of each phase, in ms, from the
-    epoch's stamps on the host: each mark present in every step to the
-    next one present, and `between`, one step's `end` to the next step's
-    `views`. None where no step was marked."""
-    present = [i for i in range(len(MARKS)) if stamps.shape[0] and bool((stamps[:, i] > 0).all())]
+    epoch's stamps on the host (a column a mark of `marks`): each mark
+    present in every step to the next one present, and `between`, one
+    step's `end` to the next step's `views`. None where no step was
+    marked."""
+    present = [i for i in range(len(marks)) if stamps.shape[0] and bool((stamps[:, i] > 0).all())]
     if len(present) < 2:
         return None
     t = stamps.tolist()
-    out = {MARKS[a]: statistics.median(row[b] - row[a] for row in t) / 1e6
+    out = {marks[a]: statistics.median(row[b] - row[a] for row in t) / 1e6
            for a, b in zip(present, present[1:])}
-    views, end = MARKS.index("views"), MARKS.index("end")
+    views, end = marks.index("views"), marks.index("end")
     if views in present and end in present and len(t) > 1:
         out["between"] = statistics.median(
             nxt[views] - row[end] for row, nxt in zip(t, t[1:])) / 1e6
