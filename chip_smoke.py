@@ -22,7 +22,17 @@ how many pooled values and argmaxes differ from aten's composition (BN,
 ReLU, max-pool), which rounds y from statistics of its own. Timed at batch
 1,024 and 512 by events and by the profiler (each kernel), beside the
 plain version, the least time their bytes need, and aten's composition
-(what the port ran before, `library_ms`). Then one float32 SimCLR step at a tiny
+(what the port ran before, `library_ms`). The ViT's attention kernels
+(`ops/attention.py`) run forward and backward through `attention` at the
+main path's calls, 6 heads of 64: 256 sequences of 65 tokens (the global
+crops), 768 of 5 (the local crops), 256 of 72 with 65 valid (padded keys)
+and the fused QKV product's strides, each of the output, the probabilities
+and dq, dk, dv held against `attention_reference` and against float64 from
+the same bf16 inputs (no less precise than the composition); timed at the
+first two by events and by the profiler (each kernel), beside the plain
+version, the least time their bytes need and
+`F.scaled_dot_product_attention` (`library_ms`, a yardstick the port never
+calls). Then one float32 SimCLR step at a tiny
 size on the card is held against the same step on the CPU, the path the
 tests hold against the JAX package, on a two-stage BasicBlock ResNet, a
 two-stage Bottleneck ResNet with 4 groups of width 4, and the TinyEncoder.
@@ -170,7 +180,10 @@ one for SeLA's single augmented view; DeepCluster builds and pays for the
 (not the quality runner's, the sweep's, the bench's or the ranks'), the
 stem kernels' launches per train step (STEM_LAUNCHES_PER_STEP on a ResNet,
 none on the ViT or `tiny`): the epoch records' `stem_launches`, or the
-counter around `Trainer._run_epoch`. It prints its steady img/s and its peak
+counter around `Trainer._run_epoch`; where it runs through the CLI, the
+attention kernels' too (the epoch records' `attention_launches`:
+ATTENTION_LAUNCHES_PER_LAYER a layer a step on a bf16 ViT with heads of
+64, none elsewhere). It prints its steady img/s and its peak
 memory above what it inherited, and checks that what each run inherits stays
 within 64 MiB of what the first run inherited. Each phase prints its
 seconds (`[time]`). Any failure raises; the line before the last holds the
@@ -215,6 +228,17 @@ STEM_SHAPES = ((512, 32, 32, torch.bfloat16), (1024, 32, 32, torch.bfloat16),
 # aten's composition at the main path's call (a y rounded the other way)
 STEM_ATEN_SHARE = 1e-3
 STEM_TIMED_BATCHES = (1024, 512)   # both views of batch 512 at once, and one view
+# the attention kernels' calls held on the card, (sequences, tokens, valid
+# tokens, fused QKV): a DINO step's at batch 64, the global crops padded to
+# 72 (`seq_pad_multiple` 8) and the fused product's strides; the first two
+# are timed
+ATTENTION_CASES = ((256, 65, None, False), (768, 5, None, False), (256, 72, 65, False),
+                   (256, 65, None, True))
+ATTENTION_KERNELS = ("vit_attn_fwd", "vit_attn_bwd")
+# attention launches a ViT layer a train step: DINO's teacher forward over
+# the global crops, the student's over the global and the local crops, the
+# student's two backwards
+ATTENTION_LAUNCHES_PER_LAYER = {"dino": 5}
 BF16_FLOPS = 989e12   # H100 SXM dense bf16 peak (NVIDIA data sheet, at 700 W)
 # the batches the paths give the kernel: 512 (SimCLR, BYOL, SimSiam, ReLIC,
 # Barlow, SwAV, DeepCluster), 256 (MoCo, PIRL, the sweep), 500 (SeLA), 64
@@ -246,7 +270,7 @@ def phase_env() -> str:
 def phase_build() -> None:
     from ssv_tpu_torch.ops import build
 
-    for name in ("photometric", "phase_mark", "stem"):
+    for name in ("photometric", "phase_mark", "stem", "attention"):
         t0 = time.perf_counter()
         path = build.build(name)
         build.load(name)
@@ -294,7 +318,7 @@ def phase_kernels(card: str) -> list[dict]:
              "bound_share_profiler": share(main["ms_profiler"]),
              "bound_share_cold": share(main["ms_cold"]), "by_batch": by_batch,
              "card": card},
-            _stem_kernels(card)]
+            _stem_kernels(card), _attention_kernels(card)]
 
 
 STEM_KERNELS = ("stem_bn_fw_stats", "stem_bn_fw_merge", "stem_bn_fw_relu_max",
@@ -459,6 +483,138 @@ def _time_stem(B: int, g, card: str) -> dict:
     return {"batch": B, "ms": ms, "ms_profiler": ms_profiler, "per_kernel_ms": per_kernel,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
             "bytes": nbytes, "bound_share_profiler": share}
+
+
+def _attention_inputs(b: int, n: int, fused: bool, g):
+    """q, k, v (b, n, 6, 64) bf16, views of the Linear outputs or of the
+    fused QKV product, and an output gradient, from the generator `g`."""
+    if fused:
+        q, k, v = (1.5 * torch.randn(b, n, 3, 6, 64, device="cuda", generator=g)).bfloat16().unbind(2)
+    else:
+        q, k, v = ((1.5 * torch.randn(b, n, 384, device="cuda", generator=g)).bfloat16()
+                   .unflatten(-1, (6, 64)) for _ in range(3))
+    return q, k, v, torch.randn(b, n, 384, device="cuda", generator=g).bfloat16()
+
+
+def _attention_through(fn, q, k, v, valid_len, gy) -> tuple:
+    """(output, probabilities, dq, dk, dv) of `fn` forward and backward."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out, probs = fn(*leaves, valid_len)
+    return (out, probs, *torch.autograd.grad(out, leaves, gy))
+
+
+def _attention_float64(q, k, v, valid_len):
+    """The attention in float64, nothing rounded: (output, probabilities)."""
+    b, n, h, d = q.shape
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    scores = q @ k.transpose(-1, -2) / math.sqrt(d)
+    if valid_len is not None and valid_len < n:
+        scores = scores.masked_fill(torch.arange(n, device=q.device) >= valid_len, -1e9)
+    probs = scores.softmax(-1)
+    return (probs @ v).transpose(1, 2).reshape(b, n, h * d), probs
+
+
+def _attention_kernels(card: str) -> dict:
+    """The attention kernels against the composition and float64 (the
+    module docstring's phase 2), then timed."""
+    from ssv_tpu_torch.ops import attention as A
+    from ssv_tpu_torch.utils import trace
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    names = ("output", "probs", "dq", "dk", "dv")
+    worst = dict.fromkeys(names, 0.0)
+    for b, n, valid_len, fused in ATTENTION_CASES:
+        q, k, v, gy = _attention_inputs(b, n, fused, g)
+        before = trace.counters.get("attention.launches", 0)
+        got = _attention_through(lambda *a: A.attention(*a, return_attn=True), q, k, v,
+                                 valid_len, gy)
+        launched = trace.counters.get("attention.launches", 0) - before
+        ref = _attention_through(A.attention_reference, q, k, v, valid_len, gy)
+        exact = _attention_through(_attention_float64, q.double(), k.double(), v.double(),
+                                   valid_len, gy.double())
+        torch.cuda.synchronize()
+        parts = []
+        for name, a, r, e in zip(names, got, ref, exact):
+            kern, comp, apart = (((x.double() - y.double()).norm() / y.double().norm()).item()
+                                 for x, y in ((a, e), (r, e), (a, r)))
+            if not (torch.isfinite(a).all() and kern <= 1.25 * comp + 1e-6 and apart <= 1e-2):
+                raise AssertionError(f"attention kernels at ({b}, {n}) valid {valid_len} fused "
+                                     f"{fused}: {name} {kern} against float64 (composition "
+                                     f"{comp}), {apart} from the composition")
+            worst[name] = max(worst[name], apart)
+            parts.append(f"{name} {kern:.2e} ({comp:.2e})")
+        if launched != 2:
+            raise AssertionError(f"attention kernels: {launched} launches for a forward and "
+                                 f"backward")
+        print(f"[kernel] attention ({b}, {n}, 6, 64) valid {valid_len} fused {fused}: error "
+              f"by norm against float64, the composition's in brackets: " + ", ".join(parts))
+        del q, k, v, gy, got, ref, exact
+    by_shape = [_time_attention(b, n, g, card) for b, n, _, _ in ATTENTION_CASES[:2]]
+    # a DINO step at batch 64 a layer: the teacher's forward and the
+    # student's forward and backward at 65 tokens, the student's at 5
+    step_ms = 6 * (by_shape[0]["fwd_ms"] + by_shape[0]["ms"] + by_shape[1]["ms"])
+    step_bound = 6 * (by_shape[0]["fwd_bound_ms"] + by_shape[0]["bound_ms"]
+                      + by_shape[1]["bound_ms"])
+    print(f"[kernel] attention in a DINO ViT step (6 layers, events): {step_ms:.4f} ms, "
+          f"bound {step_bound:.4f} ms, {step_bound / step_ms:.3f} of it | {card}")
+    main = by_shape[0]
+    return {"name": "vit_attention", "route": "cuda", "source": "ssv_tpu_torch/csrc/attention.cu",
+            "replaces": None, "max_rel_err_vs_plain": worst, "ms": main["ms"],
+            "ms_profiler": main["ms_profiler"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["library_ms"], "bound_share_profiler": main["bound_share_profiler"],
+            "dino_step_ms": step_ms, "dino_step_bound_ms": step_bound, "by_shape": by_shape,
+            "card": card}
+
+
+def _time_attention(b: int, n: int, g, card: str) -> dict:
+    """Forward and backward through the attention kernels at (b, n, 6, 64)
+    bf16 (warm in L2), by events and by the profiler (each kernel), the
+    forward alone without a gradient, beside the plain version, the least
+    time the bytes need and F.scaled_dot_product_attention."""
+    from ssv_tpu_torch.ops import attention as A
+    from ssv_tpu_torch.tools.measure import HBM_BYTES_PER_S, profiled_ms, times_ms
+
+    q, k, v, gy = _attention_inputs(b, n, False, g)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def run():
+        return torch.autograd.grad(A.attention(*leaves)[0], leaves, gy)
+
+    def forward():
+        with torch.no_grad():
+            return A.attention(q, k, v)
+
+    def plain():
+        return torch.autograd.grad(A.attention_reference(*leaves)[0], leaves, gy)
+
+    def library():
+        out = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in leaves))
+        return torch.autograd.grad(out.transpose(1, 2).reshape(b, n, 384), leaves, gy)
+
+    ms = statistics.median(times_ms(run))
+    fwd_ms = statistics.median(times_ms(forward))
+    per_kernel = profiled_ms({"kernel": run}, {k: k for k in ATTENTION_KERNELS})
+    ms_profiler = (sum(per_kernel.values()) if all(v is not None for v in per_kernel.values())
+                   else None)
+    plain_ms = statistics.median(times_ms(plain))
+    library_ms = statistics.median(times_ms(library))
+    nbytes, fwd_bytes = A.attention_bytes(q), A.attention_bytes(q, backward=False)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    fwd_bound_ms = fwd_bytes / HBM_BYTES_PER_S * 1e3
+    share = bound_ms / ms_profiler if ms_profiler else None
+    print(f"[kernel] attention ({b}, {n}, 6, 64) bf16: forward and backward {nbytes:,} bytes "
+          f"-> {bound_ms * 1e3:.3f} us, forward {fwd_bytes:,} -> {fwd_bound_ms * 1e3:.3f} us; "
+          f"events: forward and backward {ms:.4f} ms, forward alone {fwd_ms:.4f} ms; profiler "
+          + (" + ".join(f"{k} {v * 1e3:.2f}" for k, v in per_kernel.items())
+             + f" = {ms_profiler * 1e3:.2f} us, {share:.3f} of the bound"
+             if ms_profiler else "saw no device time")
+          + f"; plain version {plain_ms:.4f} ms; F.scaled_dot_product_attention "
+          f"{library_ms:.4f} ms | {card}")
+    return {"shape": [b, n, 6, 64], "ms": ms, "fwd_ms": fwd_ms, "ms_profiler": ms_profiler,
+            "per_kernel_ms": per_kernel, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "fwd_bound_ms": fwd_bound_ms, "bytes": nbytes,
+            "bound_share_profiler": share}
 
 
 def _time_photometric(B: int, g, card: str) -> dict:
@@ -743,6 +899,25 @@ def _epoch_stem(name: str, model, stats: list[dict]) -> int:
     epoch's steps', not its KNN eval's)."""
     return _check_stem(name, model, sum(e["stem_launches"] for e in stats),
                        sum(e["steps"] for e in stats))
+
+
+def _epoch_attention(name: str, model, stats: list[dict]) -> int:
+    """The attention kernels' launches in the epoch records `stats`
+    (`attention_launches`): ATTENTION_LAUNCHES_PER_LAYER a layer a step on
+    a bf16 ViT whose heads are HEAD_DIM wide, none elsewhere (the module
+    keeps the composition for other widths and for float32)."""
+    from ssv_tpu_torch.models.vit import TransformerEncoder
+    from ssv_tpu_torch.ops.attention import HEAD_DIM
+
+    launches, steps = (sum(e[k] for e in stats) for k in ("attention_launches", "steps"))
+    vits = [m for m in model.modules() if isinstance(m, TransformerEncoder)
+            and m.dtype in (None, torch.bfloat16)
+            and m.hidden_dim // m.layers[0].attention.num_heads == HEAD_DIM]
+    want = ATTENTION_LAUNCHES_PER_LAYER[name] * len(vits[0].layers) * steps if vits else 0
+    if launches != want:
+        raise AssertionError(f"{name}: attention kernels launched {launches} times in {steps} "
+                             f"train steps, expected {want}")
+    return launches
 
 
 def _check_probe(name: str, trainer, card: str) -> dict:
@@ -1435,6 +1610,7 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
     steps = resumed.state.step
     _check_launches(name, launches, steps)
     stem = _epoch_stem(name, resumed.state.model, stats)
+    attention = _epoch_attention(name, resumed.state.model, stats)
     if [e["epoch"] for e in stats] != [1, 2] or steps != sum(e["steps"] for e in stats):
         raise AssertionError(f"{name}: epochs {[e['epoch'] for e in stats]}, {steps} steps")
     losses = _check_losses(name, stats)
@@ -1447,9 +1623,11 @@ def _interrupted_and_resumed(name: str, tmp: str, card: str, arch: str = "resnet
           f"{stats[1]['steady_img_per_s']:.1f} img/s (epoch 2); peak memory of each run "
           f"above what was held before it {_gib(first_peak)} (epoch 1 and its KNN eval) "
           f"and {_gib(peak)} (resume, epoch 2, KNN, the probe); {launches} photometric "
-          f"launches for {steps} steps ({launches / steps:g} a step) | {card}")
+          f"launches for {steps} steps ({launches / steps:g} a step), {attention} attention "
+          f"launches | {card}")
     probe = _check_probe(f"{name} train", resumed, card)
-    return {"launches": launches, "stem_launches": stem, "steps": steps,
+    return {"launches": launches, "stem_launches": stem, "attention_launches": attention,
+            "steps": steps,
             "peak_bytes": [first_peak, peak],
             "held_bytes": held, "img_per_s": [e["steady_img_per_s"] for e in stats],
             "linear_eval": probe, "argv": argv, "run": run, "resumed": resumed,
@@ -2806,12 +2984,14 @@ def main() -> None:
     _timed("small steps", phase_small_steps, ["simclr", "simclr-bottleneck", "simclr-tiny"])
     # each path's checked launches: the photometric kernel's, and the stem
     # kernels' where the path's train steps ran in this process
-    paths, stem = {}, {}
+    paths, stem, attention = {}, {}, {}
 
     def tally(path: str, out: dict) -> dict:
         paths[path] = out["launches"]
         if "stem_launches" in out:
             stem[path] = out["stem_launches"]
+        if "attention_launches" in out:
+            attention[path] = out["attention_launches"]
         return out
 
     slice_out = tally("simclr", _timed("simclr", phase_slice, card))
@@ -2851,6 +3031,8 @@ def main() -> None:
     kernels[0]["launches_by_path"] = paths
     kernels[1]["launches"] = sum(stem.values())
     kernels[1]["launches_by_path"] = stem
+    kernels[2]["launches"] = sum(attention.values())
+    kernels[2]["launches_by_path"] = attention
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,20 +34,26 @@ returns float32, and the score product would be bf16):
     product, which with TF32 off is the JAX product of bf16 values with a
     float32 result; mask and softmax stay float32, the probabilities are
     cast down before probs @ V.
+
+The attention core (q, k, v to the (b, n, hidden) output) is
+`ops/attention.py`'s: in bf16, with heads `HEAD_DIM` wide, on sequences
+of up to `MAX_TOKENS` tokens it goes to `attention`, which on the card launches the hand-written
+kernels (the same arithmetic: bf16 products with float32 sums, float32
+scores, mask, softmax and their gradients, the probabilities rounded to
+bf16 for probs @ V) and on the CPU runs the composition above; in float32,
+with heads of another width, or on a longer sequence, the module runs that
+composition, `attention_reference`, itself.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import HEAD_DIM, MAX_TOKENS, attention, attention_reference
 from ..utils import trace
 from .heads import _lecun_trunc_normal_
-
-NEG_MASK = -1e9
 
 
 def compute_dtype(device: torch.device) -> torch.dtype:
@@ -75,7 +81,9 @@ class SelfAttention(nn.Module):
         self.key = nn.Linear(hidden_dim, hidden_dim, bias=False)
         self.value = nn.Linear(hidden_dim, hidden_dim, bias=False)
 
-    def forward(self, x, dt, valid_len: int | None = None):
+    def forward(self, x, dt, valid_len: int | None = None, return_attn: bool = False):
+        """(output, the (b, h, n, n) float32 probabilities where
+        `return_attn`, else None)."""
         b, n, _ = x.shape
         h = self.num_heads
         d = self.hidden_dim // h
@@ -86,14 +94,11 @@ class SelfAttention(nn.Module):
         else:
             q, k, v = (_linear(fc, x, dt).reshape(b, n, h, d)
                        for fc in (self.query, self.key, self.value))
-        q, k, v = (t.transpose(1, 2) for t in (q, k, v))          # (b, h, n, d)
-        scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
-        if valid_len is not None and valid_len < n:
-            keep = torch.arange(n, device=x.device) < valid_len
-            scores = scores.masked_fill(~keep, NEG_MASK)
-        probs = torch.softmax(scores, dim=-1)
-        out = (probs.to(dt) @ v).transpose(1, 2).reshape(b, n, self.hidden_dim)
-        return out + identity, probs
+        if dt == torch.bfloat16 and n <= MAX_TOKENS and d == HEAD_DIM:
+            out, probs = attention(q, k, v, valid_len, return_attn)
+        else:
+            out, probs = attention_reference(q, k, v, valid_len)
+        return out + identity, probs if return_attn else None
 
 
 class FeedForward(nn.Module):
@@ -116,8 +121,8 @@ class TransformerLayer(nn.Module):
         self.attention = SelfAttention(hidden_dim, num_heads, fuse_qkv)
         self.feedfwd = FeedForward(hidden_dim, intermediate_dim)
 
-    def forward(self, x, dt, valid_len: int | None = None):
-        y, probs = self.attention(x, dt, valid_len)
+    def forward(self, x, dt, valid_len: int | None = None, return_attn: bool = False):
+        y, probs = self.attention(x, dt, valid_len, return_attn)
         return self.feedfwd(y, dt), probs
 
 
@@ -184,7 +189,7 @@ class TransformerEncoder(nn.Module):
             trace.count("vit.tokens", x.shape[0] * x.shape[1])
             attn = {}
             for i, layer in enumerate(self.layers):
-                x, probs = layer(x, dt, valid_len)
+                x, probs = layer(x, dt, valid_len, return_attn)
                 if return_attn:
                     attn[f"layer_{i}"] = probs[..., :seq, :seq]
             cls_out = x[:, 0, :].float()

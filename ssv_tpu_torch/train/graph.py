@@ -38,11 +38,11 @@ Its counts and spans are in `utils/trace.py`: `graph.warmup_steps`,
 `graph.captures` and `graph.replays`, and the recorded spans
 `graph.warmup` (each warm-up step) and `graph.capture`; a replay is a span
 `graph.replay` under a profiler only. The kernel wrappers count their
-launches (`trace.LAUNCHES`: `photometric.launches`, `stem.launches`) as
-they make them, and the ViT and the multi-crop views their work
-(`trace.WORK`: `vit.tokens`, `multicrop.crops`), so the capture's counts
-stand for the graph's first replay, and every later replay adds the
-counts its capture held.
+launches (`trace.LAUNCHES`: `photometric.launches`, `stem.launches`,
+`attention.launches`) as they make them, and the ViT and the multi-crop
+views their work (`trace.WORK`: `vit.tokens`, `multicrop.crops`), so the
+capture's counts stand for the graph's first replay, and every later
+replay adds the counts its capture held.
 """
 
 from __future__ import annotations

@@ -25,12 +25,12 @@ epoch's end; `train()` puts the median of each phase, and of the gap
 between steps, into the epoch's record (`phase_ms`), with the host seconds
 of the epoch boundary's recorded spans (`boundary_s`), the process's
 counters, and the kernel launches and work counts of the epoch's steps
-(`photometric_launches`, `stem_launches`, `vit_tokens`, `multicrop_crops`;
-replays counted, the KNN eval's and the probe's not). Set-up is
-recorded as the spans `setup.config`, `setup.pipeline`,
-`setup.algorithm`, `setup.state` and `setup.load`. Under a profiler each
-step is a range `step <s>`, over its phases' ranges in an eager step or a
-`graph.replay`.
+(`photometric_launches`, `stem_launches`, `attention_launches`,
+`vit_tokens`, `multicrop_crops`; replays counted, the KNN eval's and the
+probe's not). Set-up is recorded as the spans `setup.config`,
+`setup.pipeline`, `setup.algorithm`, `setup.state` and `setup.load`. Under
+a profiler each step is a range `step <s>`, over its phases' ranges in an
+eager step or a `graph.replay`.
 
 Under a process group (`parallel/`, started by `python -m
 ssv_tpu_torch.main` under torchrun) every rank builds the same state,
@@ -469,6 +469,7 @@ class Trainer:
                      "steady_img_per_s": steady,
                      "photometric_launches": launches["photometric.launches"],
                      "stem_launches": launches["stem.launches"],
+                     "attention_launches": launches["attention.launches"],
                      "vit_tokens": launches["vit.tokens"],
                      "multicrop_crops": launches["multicrop.crops"],
                      "mode": self.epoch_mode, "phase_ms": self.phase_ms}

@@ -14,8 +14,8 @@
     `graph.captures`, `graph.replays`, `graph.warmup_steps`,
     `graph.drops.<reason>` (`refill`, `load`, `shape`: why the trainer
     dropped a captured step), the kernels' launches `LAUNCHES`
-    (`photometric.launches`, `stem.launches`: counted by their wrappers as
-    they launch), the work counts `WORK` (`vit.tokens`: the tokens, padded,
+    (`photometric.launches`, `stem.launches`, `attention.launches`: counted
+    by their wrappers as they launch), the work counts `WORK` (`vit.tokens`: the tokens, padded,
     times the batch of every `TransformerEncoder` forward; `multicrop.crops`:
     the crops `MultiCrop.crops` makes), `collectives.calls`, `.bytes` and
     `.host_s` (host seconds inside them). A graph replay adds the launches
@@ -50,8 +50,9 @@ from ..ops.phase_mark import phase_mark
 MARKS = ("views", "forward", "student", "loss", "backward", "optimizer", "state", "end")
 # the marks of every algorithm's step but DINO's
 STEP_MARKS = tuple(m for m in MARKS if m != "student")
-# the counters of kernel launches (`ops/photometric.py`, `ops/stem.py`)
-LAUNCHES = ("photometric.launches", "stem.launches")
+# the counters of kernel launches (`ops/photometric.py`, `ops/stem.py`,
+# `ops/attention.py`)
+LAUNCHES = ("photometric.launches", "stem.launches", "attention.launches")
 # the counters of work done (`models/vit.py`, `data/multicrop.py`)
 WORK = ("vit.tokens", "multicrop.crops")
 # what a graph replay adds again, as its capture counted it

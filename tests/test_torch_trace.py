@@ -279,7 +279,8 @@ def test_graph_counters_count_as_the_old_attributes(tmp_path, monkeypatch, fake_
                               "graph.replays": 3, "photometric.launches": 12,
                               "stem.launches": 36}
     assert trainer.graph.replays == 3
-    assert trainer.graph.launches == {"photometric.launches": 2, "stem.launches": 6}
+    assert trainer.graph.launches == {"photometric.launches": 2, "stem.launches": 6,
+                                      "attention.launches": 0}
     assert trainer.photometric_launches() == trace.counters["photometric.launches"]
     assert state.step == 6 and trainer._host_pos == 6
     assert trace.last_seconds("graph.capture") >= 0
