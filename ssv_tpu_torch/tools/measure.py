@@ -1,6 +1,6 @@
-"""Kernel measurements on one CUDA card, shared by `chip_smoke.py` and
-`ssv_tpu_torch.tools.paired`: the photometric kernel's inputs and its least
-time, and device times by CUDA events and by the profiler.
+"""Kernel measurements on one CUDA card, for `chip_smoke.py` and the `card`
+tests: the photometric kernel's inputs and its least time, and device
+times by CUDA events and by the profiler.
 
 Every function here needs a CUDA card; none runs on the CPU.
 """

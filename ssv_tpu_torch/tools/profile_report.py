@@ -15,8 +15,7 @@ the card, then reads it.
 It reports the device timeline's wall time (first device op's start to
 the last one's end), the duty (the union of the device ops' intervals over
 that wall), busy time and ops by kind, and the kernels that take the most
-of it. The device ops, their union and their kinds are `tools/step_profile.py`'s
-(`device_ops`, `busy_us`, `kind_of`), so the two tools classify alike.
+of it.
 
 What JAX's report leaves out and what that is here: it drops XLA's async
 copy starts and dones, whose spans overlap the compute, and the `while`
@@ -37,7 +36,19 @@ from typing import NamedTuple
 
 import torch
 
-from .step_profile import busy_us, device_ops, kind_of
+# ranges the profiler mirrors on the card's timeline around the kernels of
+# an optimizer step or a profiler step; not device work of their own
+ANNOTATIONS = ("Optimizer.step#", "Optimizer.zero_grad#", "ProfilerStep#")
+
+# kinds of device work, by the first pattern a kernel's name contains
+KINDS = (("photometric kernel", ("photometric_kernel",)),
+         ("collectives", ("nccl",)),
+         ("matmul and conv", ("gemm", "xmma", "nvjet", "cutlass", "conv", "sm90_", "sm80_")),
+         ("normalisation", ("layer_norm", "GammaBeta", "batch_norm", "bn_fw", "bn_bw")),
+         ("copies and casts", ("copy", "Memcpy", "Memset")),
+         ("optimizer (foreach)", ("multi_tensor_apply",)),
+         ("softmax", ("softmax",)),
+         ("pooling", ("pool",)))
 
 # the trace's categories of events on the card: kernels, copies and sets,
 # and the annotations the profiler mirrors there
@@ -52,11 +63,37 @@ class _Range(NamedTuple):
 
 class TraceOp(NamedTuple):
     """One complete event of a Chrome trace, with the attributes
-    `step_profile.device_ops` reads of a profiler event."""
+    `device_ops` reads of a profiler event."""
     name: str
     device_type: object
     is_user_annotation: bool
     time_range: _Range
+
+
+def busy_us(spans) -> float:
+    """The length of the union of (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def kind_of(name: str) -> str:
+    for kind, patterns in KINDS:
+        if any(p in name for p in patterns):
+            return kind
+    return "elementwise and other"
+
+
+def device_ops(events) -> list:
+    """The profiler's events that ran on the card, without the annotations
+    it mirrors there (user ranges, `Optimizer.step#...`)."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith(ANNOTATIONS)]
 
 
 def find_trace(path: str) -> str:

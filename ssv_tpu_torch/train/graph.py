@@ -37,12 +37,10 @@ epoch's index matrix and metric buffers (`Trainer.begin_epoch`).
 Its counts and spans are in `utils/trace.py`: `graph.warmup_steps`,
 `graph.captures` and `graph.replays`, and the recorded spans
 `graph.warmup` (each warm-up step) and `graph.capture`; a replay is a span
-`graph.replay` under a profiler only. The kernel wrappers count their
-launches (`trace.LAUNCHES`: `photometric.launches`, `stem.launches`,
-`attention.launches`) as they make them, and the ViT and the multi-crop
-views their work (`trace.WORK`: `vit.tokens`, `multicrop.crops`), so the
-capture's counts stand for the graph's first replay, and every later
-replay adds the counts its capture held.
+`graph.replay` under a profiler only. The counters of `trace.REPLAYED`
+(kernel launches and work done) are counted as the step's Python makes
+them, so the capture's counts stand for the graph's first replay, and
+every later replay adds the counts its capture held (`StepGraph.held`).
 """
 
 from __future__ import annotations
@@ -75,8 +73,7 @@ class StepGraph:
     def __init__(self):
         self.graph: torch.cuda.CUDAGraph | None = None
         self.warm = 0
-        self.launches = dict.fromkeys(trace.LAUNCHES, 0)  # those the captured step holds
-        self.work = dict.fromkeys(trace.WORK, 0)           # likewise
+        self.held = dict.fromkeys(trace.REPLAYED, 0)  # the counts the captured step holds
         self.replays = 0
         self.pool_bytes: int | None = None
 
@@ -120,9 +117,7 @@ class StepGraph:
                                f"CUDA graph failed: {err}") from err
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         state.step, state.scheduler.taken = step, taken
-        held = {k: trace.counters.get(k, 0) - n for k, n in before.items()}
-        self.launches = {k: held[k] for k in trace.LAUNCHES}
-        self.work = {k: held[k] for k in trace.WORK}
+        self.held = {k: trace.counters.get(k, 0) - n for k, n in before.items()}
         self.graph = graph
         trace.count("graph.captures")
 
@@ -132,7 +127,7 @@ class StepGraph:
         state.step += 1
         state.scheduler.taken += 1
         if self.replays:
-            for k, n in (*self.launches.items(), *self.work.items()):
+            for k, n in self.held.items():
                 if n:
                     trace.count(k, n)
         self.replays += 1

@@ -97,24 +97,6 @@ class OptaxAdam(torch.optim.Optimizer):
             torch._foreach_add_(params, updates)
 
 
-def _chain_pre_hook(weight_decay_fn: Optional[Callable[[int], float]],
-                    grad_clip: Optional[float]):
-    """The chain's extras on the host, for an optimizer of torch's that reads
-    host numbers (the tests hold torch.optim.Adam against optax with it):
-    the clamp, then `weight_decay` set to wd(count) with `count` a host int
-    in the param group, advanced each step."""
-    def hook(optimizer, args, kwargs):
-        for group in optimizer.param_groups:
-            if grad_clip is not None:
-                grads = [p.grad for p in group["params"] if p.grad is not None]
-                torch._foreach_clamp_min_(grads, -grad_clip)
-                torch._foreach_clamp_max_(grads, grad_clip)
-            if weight_decay_fn is not None:
-                group["weight_decay"] = weight_decay_fn(group["count"])
-                group["count"] += 1
-    return hook
-
-
 class StepSchedule:
     """The run's step counter on the device and the schedules tabled over
     its steps (the learning rate, and any other per-step number the

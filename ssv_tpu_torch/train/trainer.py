@@ -25,9 +25,9 @@ epoch's end; `train()` puts the median of each phase, and of the gap
 between steps, into the epoch's record (`phase_ms`), with the host seconds
 of the epoch boundary's recorded spans (`boundary_s`), the process's
 counters, and the kernel launches and work counts of the epoch's steps
-(`photometric_launches`, `stem_launches`, `attention_launches`,
-`vit_tokens`, `multicrop_crops`; replays counted, the KNN eval's and the
-probe's not). Set-up is recorded as the spans `setup.config`,
+(each counter of `trace.REPLAYED` under its name with `_` for `.`, as
+`photometric_launches`; replays counted, the KNN eval's and the probe's
+not). Set-up is recorded as the spans `setup.config`,
 `setup.pipeline`, `setup.algorithm`, `setup.state` and `setup.load`. Under
 a profiler each step is a range `step <s>`, over its phases' ranges in an
 eager step or a `graph.replay`.
@@ -451,7 +451,7 @@ class Trainer:
             with trace.span("pre_epoch", record=True):
                 state = self.algorithm.pre_epoch(state, self, epoch)
             idx_mat = self.epoch_indices()
-            launches = {k: trace.counters.get(k, 0) for k in trace.REPLAYED}
+            counts = {k: trace.counters.get(k, 0) for k in trace.REPLAYED}
             tracing = bool(profile_dir) and epoch == profile_epoch
             with (self._trace(profile_dir, epoch) if tracing else contextlib.nullcontext()):
                 t0 = time.perf_counter()
@@ -462,16 +462,12 @@ class Trainer:
             self.state = state
             self.start_epoch = epoch + 1
             # the epoch's own launches and work: none of the KNN eval's or the probe's
-            launches = {k: trace.counters.get(k, 0) - n for k, n in launches.items()}
+            counts = {k: trace.counters.get(k, 0) - n for k, n in counts.items()}
             means = {k: float(v.mean()) for k, v in metrics.items()}
             stats = {"epoch": epoch, "steps": idx_mat.shape[0],
                      "losses": metrics["loss"].tolist(), "seconds": dt,
                      "steady_img_per_s": steady,
-                     "photometric_launches": launches["photometric.launches"],
-                     "stem_launches": launches["stem.launches"],
-                     "attention_launches": launches["attention.launches"],
-                     "vit_tokens": launches["vit.tokens"],
-                     "multicrop_crops": launches["multicrop.crops"],
+                     **{k.replace(".", "_"): n for k, n in counts.items()},
                      "mode": self.epoch_mode, "phase_ms": self.phase_ms}
 
             ips = idx_mat.numel() / dt

@@ -23,17 +23,11 @@ import torch.nn.functional as F
 from ssv_tpu_torch.models import vit
 from ssv_tpu_torch.ops import attention as A
 from ssv_tpu_torch.utils import trace
+from torch_helpers import card  # noqa: F401 (a fixture)
 
 torch.set_num_threads(2)
 
 HIDDEN, HEADS = 128, 2   # heads of 64, the kernels' width
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return torch.device("cuda")
 
 
 def _old_core(q, k, v, valid_len, dt):
@@ -347,9 +341,12 @@ def test_card_kernels_are_no_less_precise_than_the_composition(b, n, valid_len, 
     2.3e-3, the last bf16 rounding; dq and dk 1.66e-3 against 2.35e-3; the
     float32 probabilities, another exp and order of the sum, 1.1 times the
     composition's 1.1e-7), and the kernels within 1e-2 of the composition
-    (the gradients part by 2.7e-3)."""
+    (the gradients part by 2.7e-3). The forward and backward launch one
+    kernel each."""
     q, k, v, gy = _card_qkv(b, n, fused, card)
+    before = trace.counters.get("attention.launches", 0)
     got = _through(lambda *a: A.attention(*a, return_attn=True), q, k, v, valid_len, gy)
+    assert trace.counters["attention.launches"] - before == 2
     ref = _through(A.attention_reference, q, k, v, valid_len, gy)
     exact = _through(_float64, q.double(), k.double(), v.double(), valid_len, gy.double())
     torch.cuda.synchronize()
@@ -450,5 +447,5 @@ def test_card_dino_step_launches_thirty(card, tmp_path):
         trainer.step(state)
     torch.cuda.synchronize()
     assert trainer.epoch_mode == "graph" and trainer.graph.replays == 2
-    assert trainer.graph.launches["attention.launches"] == 30
+    assert trainer.graph.held["attention.launches"] == 30
     assert trace.counters["attention.launches"] - before == 30 * steps

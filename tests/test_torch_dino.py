@@ -24,7 +24,7 @@ from ssv_tpu.utils import schedules as JS
 from ssv_tpu_torch import main as cli
 from ssv_tpu_torch.objectives.losses import dino_loss
 from ssv_tpu_torch.train.base import DataInfo as TDataInfo
-from ssv_tpu_torch.train.optim import OptaxAdam, _chain_pre_hook, get_optimizer
+from ssv_tpu_torch.train.optim import OptaxAdam, get_optimizer
 from ssv_tpu_torch.train.registry import build_algorithm
 from ssv_tpu_torch.train.trainer import Trainer
 from ssv_tpu_torch.utils import schedules as TS
@@ -135,6 +135,22 @@ def test_optimizer_chain_matches_optax(name, scheduled, clip):
         np.testing.assert_allclose(port, optax, atol=1e-6, rtol=0, err_msg=k)
     if scheduled:
         assert [g["count"] for g in opt.param_groups] == [10]
+
+
+def _chain_pre_hook(weight_decay_fn, grad_clip):
+    """The chain's extras on the host, for an optimizer of torch's that reads
+    host numbers: the clamp, then `weight_decay` set to wd(count) with
+    `count` a host int in the param group, advanced each step."""
+    def hook(optimizer, args, kwargs):
+        for group in optimizer.param_groups:
+            if grad_clip is not None:
+                grads = [p.grad for p in group["params"] if p.grad is not None]
+                torch._foreach_clamp_min_(grads, -grad_clip)
+                torch._foreach_clamp_max_(grads, grad_clip)
+            if weight_decay_fn is not None:
+                group["weight_decay"] = weight_decay_fn(group["count"])
+                group["count"] += 1
+    return hook
 
 
 @pytest.mark.parametrize("name", ["adam", "adamw"])

@@ -1,6 +1,6 @@
 """The port's build and measurement helpers that run without a card: the
-build's library naming and the photometric kernel's least time from its
-shapes."""
+build's library naming, the photometric kernel's least time from its
+shapes, and how `tools/profile_report.py` reads a trace's device ops."""
 
 import pytest
 import torch
@@ -51,18 +51,18 @@ def test_photometric_bound_counts_the_ops_the_input_needs():
     assert ops == 4 * 64 * (9 + 24 + 23)
 
 
-def test_step_profile_busy_time_is_the_union_of_device_spans():
-    from ssv_tpu_torch.tools.step_profile import busy_us
+def test_profile_report_busy_time_is_the_union_of_device_spans():
+    from ssv_tpu_torch.tools.profile_report import busy_us
 
     assert busy_us([]) == 0.0
     # overlapping, nested, touching and apart
     assert busy_us([(0, 10), (5, 12), (6, 7), (12, 14), (20, 21)]) == 15.0
 
 
-def test_step_profile_counts_device_ops_not_annotations(monkeypatch):
+def test_profile_report_counts_device_ops_not_annotations():
     import types
 
-    from ssv_tpu_torch.tools import step_profile
+    from ssv_tpu_torch.tools.profile_report import device_ops
 
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     events = [types.SimpleNamespace(name=n, device_type=d, is_user_annotation=u)
@@ -70,28 +70,12 @@ def test_step_profile_counts_device_ops_not_annotations(monkeypatch):
                               ("my_range", cuda, True), ("aten::mm", cpu, False),
                               ("Memcpy HtoD", cuda, False),
                               ("copy_kernel<{lambda()#3}>", cuda, False))]
-    assert [e.name for e in step_profile.device_ops(events)] == [
+    assert [e.name for e in device_ops(events)] == [
         "gemm", "Memcpy HtoD", "copy_kernel<{lambda()#3}>"]
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA card"):
-        step_profile.profile_steps("configs/dino.yaml", "vit", "dino")
 
 
-def test_step_profile_op_count_diff():
-    """The per-name difference between the modes: graph minus step, only
-    the names that differ (one mode's alone counts as 0 in the other), the
-    largest first."""
-    from ssv_tpu_torch.tools.step_profile import op_count_diff
-
-    step = {"gemm": 10.0, "Memset (Device)": 45.5, "copy": 2.0}
-    graph = {"gemm": 10.0, "copy": 3.0, "fill": 0.5}
-    assert op_count_diff(step, graph) == {"Memset (Device)": -45.5, "copy": 1.0, "fill": 0.5}
-    assert list(op_count_diff(step, graph)) == ["Memset (Device)", "copy", "fill"]
-    assert op_count_diff(step, step) == {}
-
-
-def test_step_profile_kinds():
-    from ssv_tpu_torch.tools.step_profile import kind_of
+def test_profile_report_kinds():
+    from ssv_tpu_torch.tools.profile_report import kind_of
 
     assert kind_of("void photometric_kernel<16>(...)") == "photometric kernel"
     assert kind_of("sm80_xmma_gemm_f32f32_f32f32_f32_nn_n") == "matmul and conv"

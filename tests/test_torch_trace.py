@@ -240,8 +240,8 @@ def fake_cuda_graph(monkeypatch):
                      ("graph", lambda g, **kw: contextlib.nullcontext())):
         monkeypatch.setattr(torch.cuda, name, fn)
 
-    def make(tmp_path):
-        trainer = _trainer(tmp_path, epochs=50)
+    def make(tmp_path, **kwargs):
+        trainer = _trainer(tmp_path, **{"epochs": 50, **kwargs})
         trainer.epoch_mode = "graph"
         real = trainer._train_step
 
@@ -279,12 +279,34 @@ def test_graph_counters_count_as_the_old_attributes(tmp_path, monkeypatch, fake_
                               "graph.replays": 3, "photometric.launches": 12,
                               "stem.launches": 36}
     assert trainer.graph.replays == 3
-    assert trainer.graph.launches == {"photometric.launches": 2, "stem.launches": 6,
-                                      "attention.launches": 0}
+    assert trainer.graph.held == {"photometric.launches": 2, "stem.launches": 6,
+                                  "attention.launches": 0, "vit.tokens": 0,
+                                  "multicrop.crops": 0}
     assert trainer.photometric_launches() == trace.counters["photometric.launches"]
     assert state.step == 6 and trainer._host_pos == 6
     assert trace.last_seconds("graph.capture") >= 0
     assert record_functions == []
+
+
+def test_epoch_record_carries_every_replayed_counter(tmp_path, monkeypatch, fake_cuda_graph):
+    """A counter added to `trace.REPLAYED` needs no other edit: the graph
+    holds it, its replays add it, and each epoch record carries it under its
+    name with `_` for `.` (one a step: four an epoch, in the warm-up, the
+    capture and the replays alike)."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(trace, "REPLAYED", trace.REPLAYED + ("sixth.count",))
+    trainer = fake_cuda_graph(tmp_path, epochs=2, linear_eval={"epochs": 1}, make_dirs=True)
+    step = trainer._train_step
+
+    def counted(state):
+        trace.count("sixth.count")
+        step(state)
+
+    trainer._train_step = counted
+    trainer.train()
+    assert trainer.graph.held["sixth.count"] == 1 and trainer.graph.replays == 5
+    assert [s["sixth_count"] for s in trainer.epoch_stats] == [4, 4]
+    assert [s["photometric_launches"] for s in trainer.epoch_stats] == [8, 8]
 
 
 def test_graph_drops_are_counted_by_reason(tmp_path, monkeypatch, fake_cuda_graph):

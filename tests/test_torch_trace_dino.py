@@ -170,7 +170,8 @@ def test_work_counters_count_the_replays(replays, tmp_path, monkeypatch):
     for _ in range(replays + 1):
         trainer.step(state)
     assert trainer.graph.replays == replays + 1
-    assert trainer.graph.work == {"vit.tokens": TOKENS_A_STEP, "multicrop.crops": CROPS_A_STEP}
+    assert {k: trainer.graph.held[k] for k in trace.WORK} == {
+        "vit.tokens": TOKENS_A_STEP, "multicrop.crops": CROPS_A_STEP}
     got = {k: trace.counters.get(k, 0) - at_capture[k] for k in trace.WORK}
     assert got == {"vit.tokens": (replays + 1) * TOKENS_A_STEP,
                    "multicrop.crops": (replays + 1) * CROPS_A_STEP}

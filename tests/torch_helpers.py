@@ -16,7 +16,18 @@ import tempfile
 import time
 
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture
+def card():
+    """The CUDA card, for the tests marked `card`; skips without one. A test
+    file that uses it imports it from here, so it holds under
+    `--noconftest`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
 
 
 def to_numpy_tree(tree):
